@@ -1,16 +1,16 @@
-"""slr — TPU-native structured-light 3D reconstruction engine.
+"""slr — structured-light 3D reconstruction engine in JAX.
 
-A brand-new JAX/XLA implementation of the capability surface of
+A JAX/XLA implementation of the capability surface of
 DrawZeroPoint/Structure-Light-Reconstructor (see SURVEY.md; the reference
 mount was empty, so the contract is BASELINE.json's north star):
 
 - Gray-code + N-step phase-shift pattern generation and decoding
 - per-pixel temporal + quality-guided phase unwrapping
 - Zhang-style camera/projector calibration via batched least squares
-- projector-camera triangulation into dense point clouds (fused Pallas
-  kernels on the hot path)
+- projector-camera triangulation into dense point clouds (a fused Pallas
+  kernel on the hot path)
 - multi-scan registration (features + RANSAC + ICP) and pose-graph /
-  bundle-adjustment refinement, distributable over a TPU mesh with
+  bundle-adjustment refinement, distributable over a device mesh with
   Schur-complement reduction.
 
 Layer map (SURVEY.md section 2.2):
@@ -23,8 +23,8 @@ __version__ = "0.1.0"
 import jax as _jax
 
 # Geometry/phase math is precision-critical (sub-mm RMS contract, SURVEY.md
-# section 6): on TPU the default matmul/einsum precision is bf16, which
-# costs ~0.4% relative error on ray directions and blows the accuracy bound
-# (measured: 1.25 mm vs 0.077 mm RMS on the config-3 scene). Hot kernels
-# that *want* bf16 MXU throughput request it explicitly instead.
+# section 6). On the GPU an f32 matmul/einsum may run in TF32 (~3
+# decimal digits), which is too coarse for the 3x3 ray/pose contractions,
+# so every f32 product in the process runs at full precision. Scoping
+# this per call site is ROADMAP Speed 3.
 _jax.config.update("jax_default_matmul_precision", "highest")

@@ -4,7 +4,7 @@ The image-based front end of camera calibration (SURVEY.md component 9;
 the role of cv::findChessboardCorners + cornerSubPix in the reference,
 with cv2 kept as the parity oracle in tests only).
 
-TPU-native split: the dense work (Gaussian smoothing, Hessian saddle
+Device/host split: the dense work (Gaussian smoothing, Hessian saddle
 response, non-max suppression, windowed gradient-orthogonality sub-pixel
 refinement) is jitted JAX over the whole image / all corners at once; the
 tiny combinatorial step (ordering ~54 detected points into a cols x rows
@@ -73,10 +73,13 @@ def corner_candidates(img, k: int, nms_radius: int = 5, sigma: float = 2.0):
         resp, -jnp.inf, jax.lax.max,
         (2 * nms_radius + 1, 2 * nms_radius + 1), (1, 1), "SAME")
     peaks = jnp.where((resp == m) & (resp > 0.05 * jnp.max(resp)), resp, 0.0)
-    score, idx = jax.lax.top_k(peaks.reshape(-1), k)
-    H, W = img.shape
-    y = (idx // W).astype(jnp.float32)
-    x = (idx % W).astype(jnp.float32)
+    # top-k per row, then over the rows' winners: the same k peaks as one
+    # top_k over the flattened image, which XLA:GPU cannot compile at
+    # camera resolution without exhausting host memory
+    row_val, row_col = jax.lax.top_k(peaks, k)            # (H, k)
+    score, j = jax.lax.top_k(row_val.reshape(-1), k)
+    y = (j // k).astype(jnp.float32)
+    x = row_col.reshape(-1)[j].astype(jnp.float32)
     return jnp.stack([x, y], axis=-1), score
 
 

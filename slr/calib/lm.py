@@ -4,7 +4,7 @@ Shared by camera/projector/stereo calibration (SURVEY.md components 9-11).
 Jacobians come from jax.jacfwd, so any differentiable residual works; the
 normal equations are damped multiplicatively (LM) and solved with
 jnp.linalg.solve in f64 when enabled, else f32 with Tikhonov floor
-(SURVEY.md section 9 "LM robustness in f32 on TPU").
+(SURVEY.md section 9 "LM robustness in f32").
 """
 
 from __future__ import annotations

@@ -43,15 +43,35 @@ def _v_ij(H, i, j):
     )
 
 
-def zhang_init_intrinsics(Hs):
-    """Closed-form K from stacked homographies (V,3,3), V >= 3."""
+def zhang_init_intrinsics(Hs, img_points=None):
+    """Closed-form K from stacked homographies (V,3,3), V >= 3.
+
+    ``img_points`` (any shape (..., 2), pixels) sets a similarity that
+    brings the image coordinates to unit scale before the solve, and K is
+    mapped back after it. In pixel units the entries of b = K^-T K^-1
+    span ~6 orders of magnitude and the f32 null vector is noise on some
+    backends (the GPU's symmetric eigensolver); normalized, it is well
+    conditioned. The null vector comes from an SVD of the constraint
+    matrix itself, not an eigh of its square.
+    """
+    if img_points is None:
+        c, s = jnp.zeros(2, jnp.float32), jnp.float32(1.0)
+    else:
+        pts = img_points.reshape(-1, 2).astype(jnp.float32)
+        c = jnp.mean(pts, axis=0)
+        s = jnp.sqrt(2.0) / (jnp.mean(jnp.linalg.norm(pts - c, axis=1))
+                             + 1e-12)
+    T = jnp.array([[s, 0.0, -s * c[0]], [0.0, s, -s * c[1]],
+                   [0.0, 0.0, 1.0]])
     rows = []
     for H in Hs:  # V is static (python loop unrolls in trace)
-        rows.append(_v_ij(H, 0, 1))
-        rows.append(_v_ij(H, 0, 0) - _v_ij(H, 1, 1))
+        Hn = T @ H
+        Hn = Hn / jnp.linalg.norm(Hn)
+        rows.append(_v_ij(Hn, 0, 1))
+        rows.append(_v_ij(Hn, 0, 0) - _v_ij(Hn, 1, 1))
     V = jnp.stack(rows)
-    _, evecs = jnp.linalg.eigh(V.T @ V)
-    b = evecs[:, 0]
+    _, _, vt = jnp.linalg.svd(V, full_matrices=False)
+    b = vt[-1]
     B11, B12, B22, B13, B23, B33 = b
     v0 = (B12 * B13 - B11 * B23) / (B11 * B22 - B12 * B12)
     lam = B33 - (B13 * B13 + v0 * (B12 * B13 - B11 * B23)) / B11
@@ -59,7 +79,8 @@ def zhang_init_intrinsics(Hs):
     beta = jnp.sqrt(jnp.abs(lam * B11 / (B11 * B22 - B12 * B12)))
     gamma = -B12 * alpha * alpha * beta / lam
     u0 = gamma * v0 / beta - B13 * alpha * alpha / lam
-    return alpha, beta, u0, v0  # fx, fy, cx, cy (skew dropped)
+    # back to pixels: K = T^-1 K_normalized (skew dropped)
+    return alpha / s, beta / s, u0 / s + c[0], v0 / s + c[1]
 
 
 def extrinsics_from_homography(H, fx, fy, cx, cy):
@@ -129,7 +150,7 @@ def calibrate_camera(obj, img_views, lm_iters: int = 60) -> CalibrationResult:
     """
     V = img_views.shape[0]
     Hs = jax.vmap(lambda uv: homography_dlt(obj[:, :2], uv))(img_views)
-    fx, fy, cx, cy = zhang_init_intrinsics(Hs)
+    fx, fy, cx, cy = zhang_init_intrinsics(Hs, img_views)
     rv, tv = jax.vmap(
         lambda H: extrinsics_from_homography(H, fx, fy, cx, cy)
     )(Hs)

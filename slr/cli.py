@@ -23,17 +23,6 @@ from pathlib import Path
 import numpy as np
 
 
-def _lazy_imports():
-    import jax
-    import jax.numpy as jnp
-    from slr.config import PatternConfig, ScanConfig
-    from slr.pipeline import Session
-    from slr.synth import bumps_depth, sphere_depth, checker_albedo
-    from slr.synth.render import default_rig, render_scan
-    from slr.geom.se3 import so3_exp
-    return jax, jnp
-
-
 def cmd_scan(args):
     """Synthetic capture: render a pattern stack of a scene from a pose
     into the session (the build's stand-in for projector+camera IO)."""
@@ -280,6 +269,7 @@ def cmd_stereo_demo(args):
               mask=cloud.mask.reshape(-1))
     print(f"two-camera cloud: {int(valid.sum())} px, RMS {rms:.4f} mm "
           f"-> {out}")
+    return rms
 
 
 def cmd_import_scan(args):
@@ -351,14 +341,18 @@ def cmd_view(args):
 
 
 def cmd_bench(args):
+    # the parent never touches a device: the benchmark process owns the card
     import subprocess
-    raise SystemExit(subprocess.call([sys.executable, "bench.py"]))
+    bench = Path(__file__).resolve().parent.parent / "bench.py"
+    raise SystemExit(subprocess.call([sys.executable, str(bench)]))
 
 
 def main(argv=None):
+    """Run one subcommand; returns what it returns (stereo-demo: the
+    cloud's RMS vs ground truth in mm)."""
     ap = argparse.ArgumentParser(prog="slr", description=__doc__)
-    # multi-host bring-up (SURVEY.md §7 comm backend): on a pod slice every
-    # host runs the same command with its own --proc-id; jax.distributed
+    # multi-host bring-up (SURVEY.md §7 comm backend): in a multi-host job
+    # every host runs the same command with its own --proc-id; jax.distributed
     # joins them into one job before any backend use. Single-process (the
     # default) skips initialization entirely. Proven cross-process in
     # tests/test_multiprocess.py (2 and 4 local processes over Gloo).
@@ -476,7 +470,11 @@ def main(argv=None):
         init_distributed(coordinator=args.coordinator,
                          num_processes=args.num_procs,
                          process_id=args.proc_id)
-    args.fn(args)
+    if args.fn is not cmd_bench:    # the bench parent stays off the device
+        from slr.runtime import enable_compile_cache
+
+        enable_compile_cache()
+    return args.fn(args)
 
 
 if __name__ == "__main__":

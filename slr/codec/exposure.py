@@ -2,7 +2,7 @@
 structured-light scanners bracket exposures so dark and glossy surfaces
 both decode; SURVEY.md section 1 capture layer / component 3).
 
-TPU-first shape: decode every exposure's full stack with ONE vmapped
+Shape: decode every exposure's full stack with ONE vmapped
 ``decode_stack`` (the per-exposure decodes are independent dense maps —
 a pure map over a new leading axis), then a per-pixel argmax selects the
 exposure with the strongest *valid* phase modulation. No data-dependent

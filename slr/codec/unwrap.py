@@ -23,7 +23,7 @@ priority-queue flood fill reformulated as a fixed-iteration, data-parallel
 label propagation: each sweep lets low-quality pixels snap their fringe
 order to the quality-weighted consensus of their 4-neighbourhood. This is
 the "vectorized quality-guided unwrapping" the north star prescribes
-[B:5]; the Pallas scan version lives in slr/kernels/unwrap_scan.py.
+[B:5]; slr.dist.sharded runs the same sweep on row shards with halos.
 """
 
 from __future__ import annotations
@@ -78,20 +78,9 @@ def spatial_quality_unwrap(Phi, quality, mask, iters: int = 8):
     return Phi_out
 
 
-def _shift_zero(a, dy, dx, roll_fn=None):
-    """roll + zero-fill at borders (no wraparound leakage). Implemented
-    with iota masks (not .at[].set) so it lowers inside Pallas kernels.
-    roll_fn overrides the roll primitive (the Pallas kernel passes
-    pltpu.roll, the TPU vector-rotate, which lowers far better than the
-    generic jnp.roll inside Mosaic)."""
-    if roll_fn is None:
-        out = jnp.roll(a, shift=(dy, dx), axis=(0, 1))
-    else:
-        out = a
-        if dy:
-            out = roll_fn(out, dy, 0)
-        if dx:
-            out = roll_fn(out, dx, 1)
+def _shift_zero(a, dy, dx):
+    """roll + zero-fill at borders (no wraparound leakage)."""
+    out = jnp.roll(a, shift=(dy, dx), axis=(0, 1))
     rows = jax.lax.broadcasted_iota(jnp.int32, a.shape, 0)
     cols = jax.lax.broadcasted_iota(jnp.int32, a.shape, 1)
     if dy == 1:
@@ -105,9 +94,9 @@ def _shift_zero(a, dy, dx, roll_fn=None):
     return out
 
 
-def propagation_step(Phi_c, q_c, mask, roll_fn=None):
-    """One quality-guided repair sweep (shared by the jnp path above and
-    the Pallas kernel in slr.kernels.unwrap_scan — identical semantics).
+def propagation_step(Phi_c, q_c, mask):
+    """One quality-guided repair sweep (shared by the single-device path
+    above and the row-sharded one in slr.dist.sharded).
 
     Strict-consensus voting: each valid 4-neighbour votes the integer
     fringe-order correction k = round((Phi_nb - Phi_c) / 2pi); the pixel
@@ -123,8 +112,8 @@ def propagation_step(Phi_c, q_c, mask, roll_fn=None):
     fmask = mask.astype(jnp.float32)
     votes, valids = [], []
     for dy, dx in ((1, 0), (-1, 0), (0, 1), (0, -1)):
-        nb_val = _shift_zero(fmask, dy, dx, roll_fn)
-        nb_phi = _shift_zero(Phi_c * fmask, dy, dx, roll_fn)
+        nb_val = _shift_zero(fmask, dy, dx)
+        nb_phi = _shift_zero(Phi_c * fmask, dy, dx)
         k = jnp.round((nb_phi - Phi_c) / TWO_PI)
         votes.append(k)
         valids.append(nb_val > 0.5)
@@ -149,10 +138,10 @@ def propagation_step(Phi_c, q_c, mask, roll_fn=None):
 #
 # The reference's priority-queue flood fill processes pixels in strictly
 # decreasing quality order, unwrapping each new pixel against an
-# already-unwrapped neighbour. TPU reformulation ([B:5] "vectorized
-# quality-guided unwrapping"): the priority queue becomes L descending
-# quality thresholds (the iterative threshold-lowering front); within a
-# level the wavefront grows by directional line scans whose per-pixel
+# already-unwrapped neighbour. Data-parallel reformulation ([B:5]
+# "vectorized quality-guided unwrapping"): the priority queue becomes L
+# descending quality thresholds (the iterative threshold-lowering
+# front); within a level the wavefront grows by directional line scans whose per-pixel
 # elements form a monoid, so a whole scanline unwraps in ONE
 # lax.associative_scan (log-depth, fully vectorized) instead of one
 # pixel per queue pop.

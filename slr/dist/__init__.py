@@ -10,8 +10,8 @@ package is the build's first-class parallelism tier. Mesh axes:
   bundle adjustment; only the reduced Schur pose system crosses blocks
   (psum), structure stays block-local [B:5].
 
-Collectives are XLA's (psum / all_gather / ppermute) over ICI/DCN —
-the NCCL-equivalent comm backend of the build. Multi-host bring-up goes
+Collectives are XLA's (psum / all_gather / ppermute), which XLA hands
+to NCCL on GPUs. Multi-host bring-up goes
 through jax.distributed.initialize (slr.dist.mesh.init_distributed).
 """
 

@@ -49,11 +49,10 @@ class BAResult(NamedTuple):
 
 
 def _inv3x3(A):
-    """Batched closed-form 3x3 inverse via the adjugate. jnp.linalg.inv
-    lowers to a pivoted LU that the TPU executes as a slow scalar path;
-    for the (L,3,3) landmark blocks the cofactor form is a handful of
-    fused VPU multiplies (the H_ll blocks are SPD + Tikhonov, so the
-    determinant is bounded away from zero)."""
+    """Batched closed-form 3x3 inverse via the adjugate: for the (L,3,3)
+    landmark blocks the cofactor form is a handful of fused elementwise
+    multiplies instead of a batched pivoted LU (the H_ll blocks are SPD
+    + Tikhonov, so the determinant is bounded away from zero)."""
     a00, a01, a02 = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
     a10, a11, a12 = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
     a20, a21, a22 = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
@@ -149,9 +148,8 @@ def _assemble_block(R, t, X, obs_s, obs_p, obs_w, S: int, damping: float,
     UtU = jnp.einsum("lkai,lkaj->lkij", U1, U1)
     Utr = jnp.einsum("lkai,lka->lki", U1, r1)
     seg = obs_s.reshape(-1)
-    # pose-indexed reductions as one-hot matmuls, not segment_sum: TPU
-    # scatter is serial-ish and dominated the iteration; with S poses the
-    # one-hot contraction is a tiny MXU matmul instead
+    # pose-indexed reductions as one-hot matmuls, not segment_sum: with
+    # S poses the one-hot contraction is a tiny dense matmul
     onehot = jax.nn.one_hot(seg, S, dtype=U1.dtype)         # (N,S)
     H_pp = jnp.einsum("nij,ns->sij", UtU.reshape(-1, 6, 6), onehot)
     g_p = jnp.einsum("ni,ns->si", Utr.reshape(-1, 6), onehot)
@@ -209,8 +207,8 @@ def _ba_iteration(R, t, X, obs_s, obs_p, obs_w, S, damping, axis_name=None,
     # gauge fix: anchor pose 0; LM-style diagonal damping on the pose block
     anchor = jnp.concatenate([jnp.full(6, 1e12), jnp.zeros(6 * S - 6)])
     H_red = H_red + jnp.diag(anchor + damping)
-    # H_red is SPD (Gauss-Newton + damping + anchor): Cholesky beats the
-    # pivoted-LU jnp.linalg.solve on TPU for this small dense system
+    # H_red is SPD (Gauss-Newton + damping + anchor): Cholesky, no
+    # pivoting needed for this small dense system
     chol = jax.scipy.linalg.cho_factor(H_red, lower=True)
     dxi = -jax.scipy.linalg.cho_solve(chol, g_red)
     dX = _back_substitute(H_ll_inv, g_l, W, obs_s, dxi, S)

@@ -4,7 +4,7 @@ The spatial quality-guided unwrap couples neighbouring pixels; when the
 image is row-sharded each tile needs its neighbours' border rows. Two
 ppermutes (up + down) move ``halo`` rows each way per call — the image
 analog of context-parallel halo exchange (SURVEY.md section 3.2,
-[S:56-112] gather pattern done the ICI-friendly way).
+[S:56-112] gather pattern).
 """
 
 from __future__ import annotations

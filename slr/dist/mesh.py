@@ -13,7 +13,7 @@ def init_distributed(coordinator: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None) -> None:
     """Multi-host job bring-up (jax.distributed). No-op when single-process
-    (the common dev/test case); on a pod slice each host calls this before
+    (the common dev/test case); in a multi-host job each host calls this before
     building the mesh, mirroring the reference's (absent) cluster layer —
     SURVEY.md section 7 'Distributed communication backend'."""
     if num_processes is None or num_processes <= 1:
@@ -30,9 +30,9 @@ def make_mesh(pixel_tiles: int = 0, map_blocks: int = 0,
     """Mesh with axes ('pixel_tile', 'map_block').
 
     Defaults: use every available device on the pixel_tile axis. The
-    product must equal the device count (devices are reshaped in order, so
-    pixel_tile is the fast axis — keeping its halo ppermutes on ICI
-    neighbours).
+    product must equal the device count (devices are reshaped in order,
+    pixel_tile fastest; every GPU of a host reaches every other at the
+    same rate, so the layout follows the algorithm alone).
     """
     devices = np.asarray(jax.devices() if devices is None else devices)
     n = devices.size

@@ -1,6 +1,6 @@
 """slr.geom — SE(3) algebra, pinhole+distortion camera model, triangulation.
 
-The TPU-native substrate replacing the reference's OpenCV/Eigen layer
+The JAX substrate replacing the reference's OpenCV/Eigen layer
 (SURVEY.md L2) and its ``VirtualCamera``-style ray model (component 21).
 Everything is pure JAX, batched-first, f32.
 """

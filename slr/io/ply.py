@@ -71,7 +71,7 @@ def write_ply(path, points, mask=None, colors=None, normals=None) -> int:
         rec["red"], rec["green"], rec["blue"] = col[:, 0], col[:, 1], col[:, 2]
     with open(path, "wb") as f:
         f.write(b"ply\nformat binary_little_endian 1.0\n")
-        f.write(b"comment slr tpu-native structured-light engine\n")
+        f.write(b"comment slr structured-light engine\n")
         f.write(f"element vertex {n}\n".encode())
         f.write(b"property float x\nproperty float y\nproperty float z\n")
         if nrm is not None:
@@ -142,7 +142,7 @@ def write_obj(path, points, mask=None, colors=None) -> int:
     """Minimal OBJ vertex export (v x y z [r g b])."""
     pts, col, _ = _as_compact(points, mask, colors)
     with open(path, "w") as f:
-        f.write("# slr tpu-native structured-light engine\n")
+        f.write("# slr structured-light engine\n")
         if col is None:
             for p in pts:
                 f.write(f"v {p[0]:.6f} {p[1]:.6f} {p[2]:.6f}\n")

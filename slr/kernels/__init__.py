@@ -1,22 +1,18 @@
-"""slr.kernels — Pallas TPU kernels for the per-pixel hot paths.
+"""slr.kernels — hand-written Pallas kernels for the per-pixel hot path.
 
-The reference's C++ hot loops (SURVEY.md components 4-8, 12: decode loops,
-unwrap loops, per-point triangulation) become fused TPU kernels here — the
-"native tier" of the build [B:5]. Each kernel reads the frame stack from
-HBM exactly once and writes the final per-pixel products, so the pipeline
-runs at HBM speed-of-light rather than one pass per stage.
+The reference's C++ hot loops (SURVEY.md components 4-8, 12: decode
+loops, unwrap loops, per-point triangulation) become one fused kernel
+here — the "native tier" of the build [B:5]. It reads each pixel's frame
+stack once and writes the final per-pixel products, instead of one pass
+per stage.
 
-Kernels auto-select interpret mode off-TPU (CPU tests) and compiled mode
-on the v5e chip; bit-exactness against the pure-JAX reference paths in
-slr.codec / slr.geom is asserted in tests/test_kernels.py.
+The kernels name the Triton route and compile on the GPU; on the CPU
+they run in Pallas interpret mode (slr.kernels.common.use_interpret).
+Parity against the pure-JAX reference paths in slr.codec / slr.geom is
+asserted in tests/test_kernels.py.
 """
 
 from slr.kernels.common import use_interpret
-from slr.kernels.fused_scan import fused_decode_triangulate
-from slr.kernels.unwrap_scan import quality_unwrap_pallas, quality_unwrap_tiled
-from slr.kernels.crossing import (
-    crossing_bin_sum, crossing_bin_sum_reference, crossing_interp,
-)
-from slr.kernels.wavefront import (
-    wavefront_unwrap_pallas, wavefront_repair_pallas,
+from slr.kernels.fused_scan import (
+    fused_decode_triangulate, fused_decode_triangulate_hdr,
 )

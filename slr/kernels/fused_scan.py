@@ -1,13 +1,15 @@
-"""Fused decode -> unwrap -> triangulate Pallas kernel.
+"""Fused decode -> unwrap -> triangulate Pallas kernel (Triton route).
 
 This is the production hot path (SURVEY.md E4, hot loops #1-#3 of the
-reference collapsed into ONE kernel): the (F, H, W) captured frame stack
-is read from HBM exactly once per pixel tile, and the kernel emits the 3D
-point map, validity mask and quality map directly — Gray decode + per-bit
-certainty, N-step phase, cyclic half-shifted temporal unwrap, camera-ray
-undistortion and triangulation all fused in VMEM. With ~100 MB of frames
-in and ~20 MB out per megapixel scan this runs at HBM speed-of-light;
-everything else is VPU arithmetic hidden under the DMA.
+reference collapsed into ONE kernel): each program reads its pixel tile
+of the (F, H, W) captured frame stack once, one frame at a time, and
+writes the 3D point map, validity mask and quality map directly — Gray
+decode + per-bit certainty, N-step phase, cyclic half-shifted temporal
+unwrap, camera-ray undistortion and triangulation all stay in registers.
+The work is memory-bound (20-80 B/px in, 28 B/px out, ~200 flops/px),
+so what the kernel saves over the plain route (slr.pipeline.reconstruct.
+reconstruct_scan) is the intermediate maps that route writes and reads
+back between stages.
 
 Two triangulation modes (the "fused midpoint/DLT kernel" of [B:5]):
 - column-only coding -> camera-ray x projector-column-plane intersection
@@ -15,29 +17,39 @@ Two triangulation modes (the "fused midpoint/DLT kernel" of [B:5]):
 - row+column coding  -> midpoint of the common perpendicular between the
   undistorted camera and projector rays (full projector distortion).
 
-Assumes the standard scan frame: camera at the world origin with R = I
-(the wrapper asserts this). Bit-exactness vs the pure-JAX path
-(slr.codec.decode_stack + slr.geom.triangulate) is asserted in
-tests/test_kernels.py.
+Layout for the Triton lowering: a 2-D parallel grid of (BH, BW) pixel
+tiles with nothing carried between programs; every load and store is one
+power-of-two (BH, BW) tile (the frame axis is indexed one frame at a
+time), and the parameter row is read as scalars. Off the GPU the same
+kernel runs in Pallas interpret mode (slr.kernels.common.use_interpret).
+
+Assumes the standard scan frame: camera at the world origin with R = I.
+Parity with the pure-JAX path (slr.codec.decode_stack +
+slr.geom.triangulate) is asserted in tests/test_kernels.py.
 """
 
 from __future__ import annotations
 
 import math
 from functools import partial
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from slr.config import DecodeConfig, PatternConfig
 from slr.geom.camera import Camera
-from slr.kernels.common import cdiv, round_up, use_interpret
-from slr.kernels.math import atan2 as _atan2
+from slr.kernels.common import round_up, use_interpret
 
 TWO_PI = 2.0 * math.pi
+
+# pixel tile per program (rows, cols), both powers of two, and warps per
+# program: the fastest of a sweep at 1280x1024 on an H100 (PERF.md, PR 1)
+BLOCK = (8, 128)
+_NUM_WARPS = 8
+_N_PARAMS = 64      # parameter row padded to a power of two
 
 
 class FusedScanOut(NamedTuple):
@@ -46,6 +58,12 @@ class FusedScanOut(NamedTuple):
     quality: jnp.ndarray   # (H, W) phase modulation B
     x_p: jnp.ndarray       # (H, W) decoded sub-pixel projector column
     y_p: jnp.ndarray       # (H, W) decoded projector row (0 if not coded)
+
+
+def _round(x):
+    # round-half-up: the Triton lowering has no round primitive, and the
+    # arguments here are near-integers (fringe orders), never near .5
+    return jnp.floor(x + 0.5)
 
 
 def _undistort(xd, yd, k1, k2, p1, p2, k3, iters):
@@ -64,10 +82,11 @@ def _undistort(xd, yd, k1, k2, p1, p2, k3, iters):
 def _gray_decode_block(ld, first: int, bits: int, tau_white, certain):
     """MSB-first Gray bits at frames [first, first+bits) with inverses at
     [first+bits, first+2*bits); returns (binary code, updated certainty)."""
-    g = jnp.zeros(ld(0).shape, jnp.int32)
+    g = None
     for i in range(bits):
         diff = ld(first + i) - ld(first + bits + i)
-        g = (g << 1) | (diff > 0.0).astype(jnp.int32)
+        bit = (diff > 0).astype(jnp.int32)
+        g = bit if g is None else (g << 1) | bit
         certain = certain & (jnp.abs(diff) > tau_white)
     b = g
     shift = 1
@@ -77,20 +96,27 @@ def _gray_decode_block(ld, first: int, bits: int, tau_white, certain):
     return b, certain
 
 
+def _phase_sums(ld, base: int, steps: int):
+    """N-step sin/cos sums of frames [base, base+steps) in raw units."""
+    S = C = None
+    for k in range(steps):
+        d = TWO_PI * k / steps
+        fk = ld(base + k)
+        S = fk * math.sin(d) if S is None else S + fk * math.sin(d)
+        C = fk * math.cos(d) if C is None else C + fk * math.cos(d)
+    return S, C
+
+
 def _kernel(params_ref, f_ref, pts_ref, mask_ref, qual_ref, xp_ref,
             yp_ref, *, bits: int, row_bits: int, steps: int,
-            row_steps: int, tile_h: int, undistort_iters: int,
-            scale: float, tau_black, tau_white, tau_mod,
-            mf_pitches: tuple = (), decode_only: bool = False):
-    # Frame loaders. Integer (8-bit camera) stacks read 1 byte/px from
-    # HBM; all comparisons (Gray bits, contrast/certainty thresholds)
-    # stay in the INTEGER domain — the int->f32 convert is VPU-bound and
-    # f32-converting every frame erased the 4x HBM win (VERDICT r2 next
-    # #5). Only the N phase frames are converted (their sin/cos sums need
-    # f32), in RAW units: atan2 ratios are scale-invariant, and the
-    # modulation output is rescaled once at the end. The tau_* thresholds
-    # arrive as compile-time constants already expressed in raw units
-    # (integers for integer stacks), so no comparison promotes to f32.
+            row_steps: int, undistort_iters: int, scale: float,
+            tau_black, tau_white, tau_mod, mf_pitches: tuple = ()):
+    # Frame loaders. Integer (8-bit camera) stacks read 1 byte/px and
+    # every comparison (Gray bits, contrast/certainty thresholds) stays
+    # in the integer domain; only the N phase frames are converted to
+    # f32, in RAW units (atan2 ratios are scale-invariant and the
+    # modulation output is rescaled once at the end). The tau_*
+    # thresholds arrive as compile-time constants already in raw units.
     if scale != 1.0:
         def raw(i):
             return f_ref[i].astype(jnp.int32)
@@ -103,12 +129,9 @@ def _kernel(params_ref, f_ref, pts_ref, mask_ref, qual_ref, xp_ref,
 
         rawf = raw
     p = params_ref
-    pitch = p[0, 33]
-    row_pitch = p[0, 34]
 
     white = raw(0)
-    black = raw(1)
-    contrast = white - black            # raw units (int for int stacks)
+    contrast = white - raw(1)           # raw units (int for int stacks)
     certain = contrast > tau_black
 
     if mf_pitches:
@@ -117,14 +140,8 @@ def _kernel(params_ref, f_ref, pts_ref, mask_ref, qual_ref, xp_ref,
         Phi = None
         modulation = None
         for li, p_l in enumerate(mf_pitches):
-            S = jnp.zeros(white.shape, jnp.float32)
-            C = jnp.zeros(white.shape, jnp.float32)
-            for k in range(steps):
-                d = TWO_PI * k / steps
-                fk = rawf(2 + li * steps + k)
-                S = S + fk * math.sin(d)
-                C = C + fk * math.cos(d)
-            phi = _atan2(S, C)
+            S, C = _phase_sums(rawf, 2 + li * steps, steps)
+            phi = jnp.arctan2(S, C)
             phi = jnp.where(phi < 0.0, phi + TWO_PI, phi)  # [0, 2pi)
             B = (2.0 / steps) * jnp.sqrt(S * S + C * C)    # raw units
             mask = mask & (B > tau_mod)
@@ -133,7 +150,7 @@ def _kernel(params_ref, f_ref, pts_ref, mask_ref, qual_ref, xp_ref,
                 modulation = B
             else:
                 prev_in_cur = Phi * (mf_pitches[li - 1] / p_l)
-                k_ord = jnp.round((prev_in_cur - phi) / TWO_PI)
+                k_ord = _round((prev_in_cur - phi) / TWO_PI)
                 Phi = phi + TWO_PI * k_ord
                 modulation = jnp.minimum(modulation, B)
         modulation = modulation * scale if scale != 1.0 else modulation
@@ -148,53 +165,36 @@ def _kernel(params_ref, f_ref, pts_ref, mask_ref, qual_ref, xp_ref,
             raw, rawf, certain, contrast,
             bits=bits, row_bits=row_bits, steps=steps, row_steps=row_steps,
             tau_white=tau_white, tau_mod=tau_mod, scale=scale,
-            pitch=pitch, row_pitch=row_pitch)
+            pitch=p[33], row_pitch=p[34])
 
     _triangulate_write(p, x_p, y_p, mask, modulation,
                        pts_ref, mask_ref, qual_ref, xp_ref, yp_ref,
-                       row_bits=row_bits, tile_h=tile_h,
-                       undistort_iters=undistort_iters,
-                       decode_only=decode_only)
+                       row_bits=row_bits, undistort_iters=undistort_iters)
 
 
 def _triangulate_write(p, x_p, y_p, mask, modulation,
                        pts_ref, mask_ref, qual_ref, xp_ref, yp_ref, *,
-                       row_bits: int, tile_h: int, undistort_iters: int,
-                       decode_only: bool = False):
+                       row_bits: int, undistort_iters: int):
     """Camera-ray construction + plane/midpoint triangulation + output
-    writes — the tail shared by the single-exposure and HDR kernels.
-    ``decode_only`` skips the ray math and emits points = 0 (the
-    two-camera merge path wants only the code maps — its geometry never
-    touches the projector model)."""
-    if decode_only:
-        fmask = mask.astype(jnp.float32)
-        pts_ref[0] = jnp.zeros_like(fmask)
-        pts_ref[1] = jnp.zeros_like(fmask)
-        pts_ref[2] = jnp.zeros_like(fmask)
-        mask_ref[:] = fmask
-        qual_ref[:] = modulation
-        xp_ref[:] = x_p
-        yp_ref[:] = (jnp.zeros_like(x_p) if y_p is None else y_p)
-        return
-    fx, fy, cx, cy = p[0, 3], p[0, 4], p[0, 5], p[0, 6]
-    k1, k2, p1, p2, k3 = p[0, 7], p[0, 8], p[0, 9], p[0, 10], p[0, 11]
-    pfx, pfy, pcx, pcy = p[0, 12], p[0, 13], p[0, 14], p[0, 15]
-    q1, q2, s1, s2, q3 = p[0, 16], p[0, 17], p[0, 18], p[0, 19], p[0, 20]
-    R00, R01, R02 = p[0, 21], p[0, 22], p[0, 23]
-    R10, R11, R12 = p[0, 24], p[0, 25], p[0, 26]
-    R20, R21, R22 = p[0, 27], p[0, 28], p[0, 29]
-    Cx, Cy, Cz = p[0, 30], p[0, 31], p[0, 32]
-    zmin, zmax = p[0, 35], p[0, 36]
-    row_off = p[0, 37]
+    writes — the tail shared by the single-exposure and HDR kernels."""
+    fx, fy, cx, cy = p[3], p[4], p[5], p[6]
+    k1, k2, p1, p2, k3 = p[7], p[8], p[9], p[10], p[11]
+    pfx, pfy, pcx, pcy = p[12], p[13], p[14], p[15]
+    q1, q2, s1, s2, q3 = p[16], p[17], p[18], p[19], p[20]
+    R00, R01, R02 = p[21], p[22], p[23]
+    R10, R11, R12 = p[24], p[25], p[26]
+    R20, R21, R22 = p[27], p[28], p[29]
+    Cx, Cy, Cz = p[30], p[31], p[32]
+    zmin, zmax = p[35], p[36]
+    row_off = p[37]
 
     # --- camera ray (undistort); unnormalized d1 = (xn, yn, 1) so the
     # ray parameter equals camera depth z ---
-    i_tile = pl.program_id(0)
-    # tpu.iota only produces integers; cast to f32 after
-    rows = jax.lax.broadcasted_iota(jnp.int32, x_p.shape, 0).astype(jnp.float32)
-    cols = jax.lax.broadcasted_iota(jnp.int32, x_p.shape, 1).astype(jnp.float32)
-    v_pix = rows + i_tile * tile_h + row_off
-    u_pix = cols
+    bh, bw = x_p.shape
+    rows = jax.lax.broadcasted_iota(jnp.int32, (bh, bw), 0)
+    cols = jax.lax.broadcasted_iota(jnp.int32, (bh, bw), 1)
+    v_pix = (rows + pl.program_id(0) * bh).astype(jnp.float32) + row_off
+    u_pix = (cols + pl.program_id(1) * bw).astype(jnp.float32)
     xn, yn = _undistort((u_pix - cx) / fx, (v_pix - cy) / fy,
                         k1, k2, p1, p2, k3, undistort_iters)
 
@@ -239,13 +239,11 @@ def _triangulate_write(p, x_p, y_p, mask, modulation,
     pts_ref[0] = Xx * fmask
     pts_ref[1] = Xy * fmask
     pts_ref[2] = Xz * fmask
-    mask_ref[:] = fmask
-    qual_ref[:] = modulation
-    xp_ref[:] = x_p
-    # documented semantics: decoded projector row, 0 if not coded (the
-    # triangulate branch previously left this output uninitialized —
-    # stale VMEM on TPU, NaN in interpret mode; ADVICE r4 #1)
-    yp_ref[:] = (jnp.zeros_like(x_p) if y_p is None else y_p)
+    mask_ref[...] = fmask
+    qual_ref[...] = modulation.astype(jnp.float32)
+    xp_ref[...] = x_p
+    # decoded projector row, 0 if not coded
+    yp_ref[...] = jnp.zeros_like(x_p) if y_p is None else y_p
 
 
 def _gray_phase_decode(raw, rawf, certain, contrast, *, bits, row_bits,
@@ -253,16 +251,14 @@ def _gray_phase_decode(raw, rawf, certain, contrast, *, bits, row_bits,
                        pitch, row_pitch, SC=None, SC_row=None):
     """Gray(+inverse) decode + N-step phase + cyclic half-shifted unwrap —
     the reference coding scheme. ``raw``/``rawf`` load frames in raw
-    (unnormalized) units — integer for integer stacks, so the Gray
-    comparisons never touch the VPU int->f32 converter; only the phase
+    (unnormalized) units — integer for integer stacks; only the phase
     frames go through ``rawf``. Returns (x_p, y_p, mask, modulation),
     modulation rescaled to normalized units.
 
     ``SC`` / ``SC_row`` optionally inject precomputed phase sin/cos sums
     (raw units) — the HDR kernel computes them per exposure for its
-    selection score and the chosen exposure's sums are reused here
-    instead of a second pass over the frames."""
-    shape = contrast.shape
+    selection score and reuses the chosen (or fused) sums here instead
+    of a second pass over the frames."""
     b, certain = _gray_decode_block(raw, 2, bits, tau_white, certain)
 
     # --- optional row Gray decode (y_p computed after the mask exists) ---
@@ -277,15 +273,8 @@ def _gray_phase_decode(raw, rawf, certain, contrast, *, bits, row_bits,
         if SC is not None:
             S, C = SC
         else:
-            S = jnp.zeros(shape, jnp.float32)
-            C = jnp.zeros(shape, jnp.float32)
-            base = 2 + 2 * bits + 2 * row_bits
-            for k in range(steps):
-                d = TWO_PI * k / steps
-                fk = rawf(base + k)
-                S = S + fk * math.sin(d)
-                C = C + fk * math.cos(d)
-        phi = _atan2(S, C)
+            S, C = _phase_sums(rawf, 2 + 2 * bits + 2 * row_bits, steps)
+        phi = jnp.arctan2(S, C)
         phi = jnp.where(phi < 0.0, phi + TWO_PI, phi)
         modulation = (2.0 / steps) * jnp.sqrt(S * S + C * C)  # raw units
         mask = certain & (modulation > tau_mod)
@@ -303,8 +292,7 @@ def _gray_phase_decode(raw, rawf, certain, contrast, *, bits, row_bits,
     else:
         # config-1 Gray-only decode: stripe centre, aligned layout
         x_p = (b.astype(jnp.float32) + 0.5) * pitch
-        modulation = (contrast.astype(jnp.float32) * scale
-                      if scale != 1.0 else contrast)
+        modulation = contrast.astype(jnp.float32) * scale
         mask = certain
 
     # --- projector row: half-stripe centres, or sub-pixel via the row
@@ -315,15 +303,9 @@ def _gray_phase_decode(raw, rawf, certain, contrast, *, bits, row_bits,
             if SC_row is not None:
                 Sr, Cr = SC_row
             else:
-                base_r = 2 + 2 * bits + 2 * row_bits + steps
-                Sr = jnp.zeros(shape, jnp.float32)
-                Cr = jnp.zeros(shape, jnp.float32)
-                for k in range(row_steps):
-                    d = TWO_PI * k / row_steps
-                    fk = rawf(base_r + k)
-                    Sr = Sr + fk * math.sin(d)
-                    Cr = Cr + fk * math.cos(d)
-            rphi = _atan2(Sr, Cr)
+                Sr, Cr = _phase_sums(
+                    rawf, 2 + 2 * bits + 2 * row_bits + steps, row_steps)
+            rphi = jnp.arctan2(Sr, Cr)
             rphi = jnp.where(rphi < 0.0, rphi + TWO_PI, rphi)
             rmod = (2.0 / row_steps) * jnp.sqrt(Sr * Sr + Cr * Cr)
             mask = mask & (rmod > tau_mod)
@@ -341,12 +323,13 @@ def _gray_phase_decode(raw, rawf, certain, contrast, *, bits, row_bits,
 
 
 def _pack_params(cam, proj, cfg, dec, z_bounds, row_offset):
-    """SMEM parameter row shared by the single-exposure and HDR kernels."""
+    """Scalar parameter row shared by the single-exposure and HDR
+    kernels, zero-padded to _N_PARAMS entries."""
     row_pitch = (
         cfg.proj_height / (1 << cfg.row_gray_bits) if cfg.row_gray_bits
         else 0.0
     )
-    return jnp.concatenate(
+    p = jnp.concatenate(
         [
             jnp.asarray(
                 [dec.black_threshold, dec.white_threshold,
@@ -362,15 +345,18 @@ def _pack_params(cam, proj, cfg, dec, z_bounds, row_offset):
             jnp.asarray(z_bounds, jnp.float32),
             jnp.asarray(row_offset, jnp.float32).reshape(1),
         ]
-    ).reshape(1, -1)
+    ).astype(jnp.float32)
+    return jnp.pad(p, (0, _N_PARAMS - p.shape[0]))
 
 
 def _raw_thresholds(dtype, bit_depth, dec):
-    """(scale, in_bytes, tau_black, tau_white, tau_mod) in RAW units."""
+    """(scale, in_bytes, tau_black, tau_white, tau_mod) in RAW units:
+    Python ints for integer stacks, so every in-kernel comparison of
+    frame values stays integer."""
     if jnp.issubdtype(dtype, jnp.integer):
         m = ((1 << bit_depth) - 1 if bit_depth is not None
              else jnp.iinfo(dtype).max)
-        return (1.0 / float(m), dtype.itemsize,
+        return (1.0 / float(m), jnp.dtype(dtype).itemsize,
                 int(round(dec.black_threshold * m)),
                 int(round(dec.white_threshold * m)),
                 dec.modulation_threshold * m)
@@ -378,21 +364,58 @@ def _raw_thresholds(dtype, bit_depth, dec):
             dec.modulation_threshold)
 
 
-@partial(jax.jit, static_argnames=("cfg", "dec", "z_bounds", "tile_h",
-                                   "undistort_iters", "bit_depth",
-                                   "decode_only"))
+def _call(kern, params, frames, H, W, flops_per_px, in_bytes_per_px):
+    """pallas_call over a BLOCK tile grid of the (..., H, W) input
+    (padded to whole tiles), Triton route; crops the outputs to (H, W)."""
+    bh, bw = BLOCK
+    Hp, Wp = round_up(H, bh), round_up(W, bw)
+    if (Hp, Wp) != (H, W):
+        pad = [(0, 0)] * (frames.ndim - 2) + [(0, Hp - H), (0, Wp - W)]
+        frames = jnp.pad(frames, pad)
+    lead = frames.shape[:-2]
+    nl = len(lead)
+    tile = pl.BlockSpec((bh, bw), lambda i, j: (i, j))
+    pts, mask, qual, xp, yp = pl.pallas_call(
+        kern,
+        grid=(Hp // bh, Wp // bw),
+        in_specs=[
+            pl.BlockSpec((_N_PARAMS,), lambda i, j: (0,)),
+            pl.BlockSpec((*lead, bh, bw),
+                         lambda i, j: (*([0] * nl), i, j)),
+        ],
+        out_specs=(pl.BlockSpec((3, bh, bw), lambda i, j: (0, i, j)),
+                   tile, tile, tile, tile),
+        out_shape=(
+            jax.ShapeDtypeStruct((3, Hp, Wp), jnp.float32),
+            *[jax.ShapeDtypeStruct((Hp, Wp), jnp.float32)] * 4,
+        ),
+        cost_estimate=pl.CostEstimate(
+            flops=flops_per_px * Hp * Wp,
+            bytes_accessed=(in_bytes_per_px + 7 * 4) * Hp * Wp,
+            transcendentals=3 * Hp * Wp,
+        ),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=_NUM_WARPS),
+        interpret=use_interpret(),
+        name="fused_decode_triangulate",
+    )(params, frames)
+    return FusedScanOut(points=pts[:, :H, :W], mask=mask[:H, :W],
+                        quality=qual[:H, :W], x_p=xp[:H, :W],
+                        y_p=yp[:H, :W])
+
+
+@partial(jax.jit, static_argnames=("cfg", "dec", "z_bounds",
+                                   "undistort_iters", "bit_depth"))
 def fused_decode_triangulate(
-    frames,                  # (F, H, W) f32 captured stack
+    frames,                  # (F, H, W) captured stack
     cam: Camera,
     proj: Camera,
     cfg: PatternConfig,
     dec: DecodeConfig,
     z_bounds=(1.0, 1e4),
-    tile_h: int = 32,
     undistort_iters: int = 8,
     bit_depth: int | None = None,
     row_offset=0.0,          # global row of frames[…,0,:] (pixel-tile shards)
-    decode_only: bool = False,
 ) -> FusedScanOut:
     """One-pass scan reconstruction (requires inverse Gray patterns).
     phase_steps == 0 -> Gray-only half-stripe decode (config 1);
@@ -401,72 +424,29 @@ def fused_decode_triangulate(
     frames), column-plane triangulation.
 
     ``frames`` may be float32 in [0,1] or uint8 (raw 8-bit camera data);
-    the uint8 path reads 1 byte/px from HBM and normalizes in-register,
-    cutting the kernel's HBM traffic ~4x. ``bit_depth`` overrides the
-    ADC range for sensors delivering fewer bits than their integer
-    container (10/12-bit data in uint16), as in decode_stack."""
+    the uint8 path reads 1 byte/px and normalizes in-register, cutting
+    the kernel's input traffic 4x. ``bit_depth`` overrides the ADC range
+    for sensors delivering fewer bits than their integer container
+    (10/12-bit data in uint16), as in decode_stack."""
     multifreq = cfg.coding == "multifreq"
     assert multifreq or cfg.use_inverse
     F, H, W = frames.shape
     assert F == cfg.num_frames, (F, cfg.num_frames)
-    if jnp.issubdtype(frames.dtype, jnp.integer):
-        m = ((1 << bit_depth) - 1 if bit_depth is not None
-             else jnp.iinfo(frames.dtype).max)
-        scale = 1.0 / float(m)
-        in_bytes = frames.dtype.itemsize
-        # thresholds in raw ADC counts, as Python ints, so every in-kernel
-        # comparison stays integer (no VPU int->f32 conversion)
-        tau_black_k = int(round(dec.black_threshold * m))
-        tau_white_k = int(round(dec.white_threshold * m))
-        tau_mod_k = dec.modulation_threshold * m  # gates the f32 phase sum
-    else:
-        scale = 1.0
-        in_bytes = 4
-        tau_black_k = dec.black_threshold
-        tau_white_k = dec.white_threshold
-        tau_mod_k = dec.modulation_threshold
-
-    # pad W to lanes, H to tile. Clamp the row tile so the double-
-    # buffered frame block stays within scoped VMEM: a 36-frame f32
-    # stack at tile_h=32 is 5.9 MB/block and the kernel's total scoped
-    # allocation crossed the 16 MB limit by 6% (reproduced: the search-
-    # method two-camera graph, r5) — halve the tile until the frame
-    # block fits a 4 MB budget (uint8 stacks keep tile_h=32).
-    Wp = round_up(W, 128)
-    while tile_h > 8 and F * tile_h * Wp * in_bytes > 4 * 2 ** 20:
-        tile_h //= 2
-    Hp = round_up(H, tile_h)
-    if (Wp, Hp) != (W, H):
-        frames = jnp.pad(frames, ((0, 0), (0, Hp - H), (0, Wp - W)))
-
-    if proj is None:
-        assert decode_only, "a projector model is required to triangulate"
-        proj = cam._replace(R=jnp.eye(3, dtype=jnp.float32),
-                            t=jnp.zeros(3, jnp.float32))
+    scale, in_bytes, tau_black, tau_white, tau_mod = _raw_thresholds(
+        frames.dtype, bit_depth, dec)
     params = _pack_params(cam, proj, cfg, dec, z_bounds, row_offset)
-
     kern = partial(
         _kernel,
         bits=cfg.gray_bits,
         row_bits=cfg.row_gray_bits,
         steps=cfg.phase_steps,
         row_steps=cfg.row_phase_steps,
-        tile_h=tile_h,
         undistort_iters=undistort_iters,
         scale=scale,
-        tau_black=tau_black_k,
-        tau_white=tau_white_k,
-        tau_mod=tau_mod_k,
+        tau_black=tau_black,
+        tau_white=tau_white,
+        tau_mod=tau_mod,
         mf_pitches=cfg.mf_pitches if multifreq else (),
-        decode_only=decode_only,
-    )
-    grid = (Hp // tile_h,)
-    out_shape = (
-        jax.ShapeDtypeStruct((3, Hp, Wp), jnp.float32),
-        jax.ShapeDtypeStruct((Hp, Wp), jnp.float32),
-        jax.ShapeDtypeStruct((Hp, Wp), jnp.float32),
-        jax.ShapeDtypeStruct((Hp, Wp), jnp.float32),
-        jax.ShapeDtypeStruct((Hp, Wp), jnp.float32),
     )
     if multifreq:
         flops_per_px = (
@@ -479,68 +459,30 @@ def fused_decode_triangulate(
             + 6 * (cfg.phase_steps + cfg.row_phase_steps)
             + 14 * undistort_iters * (2 if cfg.row_gray_bits else 1)
         )
-    pts, mask, qual, xp, yp = pl.pallas_call(
-        kern,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, params.shape[1]), lambda i: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((F, tile_h, Wp), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((3, tile_h, Wp), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_h, Wp), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_h, Wp), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_h, Wp), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_h, Wp), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ),
-        out_shape=out_shape,
-        cost_estimate=pl.CostEstimate(
-            flops=flops_per_px * Hp * Wp,
-            bytes_accessed=(F * in_bytes + 6 * 4) * Hp * Wp,
-            transcendentals=3 * Hp * Wp,
-        ),
-        interpret=use_interpret(),
-    )(params, frames)
-
-    if (Wp, Hp) != (W, H):
-        pts = pts[:, :H, :W]
-        mask = mask[:H, :W]
-        qual = qual[:H, :W]
-        xp = xp[:H, :W]
-        yp = yp[:H, :W]
-    return FusedScanOut(points=pts, mask=mask, quality=qual, x_p=xp,
-                        y_p=yp)
+    return _call(kern, params, frames, H, W, flops_per_px, F * in_bytes)
 
 
 def _hdr_kernel(params_ref, f_ref, pts_ref, mask_ref, qual_ref, xp_ref,
                 yp_ref, *, E: int, bits: int, row_bits: int, steps: int,
-                row_steps: int, tile_h: int, undistort_iters: int,
-                scale: float, tau_black, tau_white, tau_mod, tau_sat,
-                fuse: str = "sum"):
-    """Exposure-bracketed fused decode (VERDICT r3 next #5): the (E, F)
-    frame block is read from HBM ONCE; per-exposure phase modulation is
-    computed in VMEM, and the standard Gray+phase decode+triangulate
-    runs a single time — instead of E dense pure-JAX decodes + a gather
+                row_steps: int, undistort_iters: int, scale: float,
+                tau_black, tau_white, tau_mod, tau_sat, fuse: str = "sum"):
+    """Exposure-bracketed fused decode: each program reads its tile of
+    the (E, F) bracket once; per-exposure phase modulation is computed
+    in registers, and the standard Gray+phase decode+triangulate runs a
+    single time — instead of E dense pure-JAX decodes + a gather
     (slr.codec.exposure).
 
     ``fuse="select"`` mirrors decode_multi_exposure: the best valid
     unsaturated exposure (score = modulation where contrast above
     tau_black AND white below saturation, else -1) supplies both the
-    Gray frames and the phase sums. ``fuse="sum"`` (default, VERDICT r4
-    next #5) still selects Gray bits that way (they are binary — one
-    clean exposure is all they need) but FUSES the phase: the sin/cos
-    sums of every usable exposure are added, i.e. each exposure's phase
-    vector B_e * e^(i*phi) enters with weight proportional to its own
-    modulation — exactly the inverse-variance weighting for equal
-    additive sensor noise per capture, so dark pixels seen by several
-    exposures get strictly more signal than any single pick."""
+    Gray frames and the phase sums. ``fuse="sum"`` (default) still
+    selects Gray bits that way (they are binary — one clean exposure is
+    all they need) but FUSES the phase: the sin/cos sums of every usable
+    exposure are added, each exposure's phase vector B_e * e^(i*phi)
+    weighted in proportion to its own modulation — the inverse-variance
+    weighting for equal additive sensor noise per capture, so dark
+    pixels seen by several exposures get strictly more signal than any
+    single pick."""
     if scale != 1.0:
         def raw_e(e, i):
             return f_ref[e, i].astype(jnp.int32)
@@ -553,8 +495,6 @@ def _hdr_kernel(params_ref, f_ref, pts_ref, mask_ref, qual_ref, xp_ref,
 
         rawf_e = raw_e
     p = params_ref
-    pitch = p[0, 33]
-    row_pitch = p[0, 34]
 
     base = 2 + 2 * bits + 2 * row_bits
     best = None
@@ -562,13 +502,7 @@ def _hdr_kernel(params_ref, f_ref, pts_ref, mask_ref, qual_ref, xp_ref,
     Ss, Cs, Srs, Crs = [], [], [], []
     usables, Bs = [], []
     for e in range(E):
-        S = jnp.zeros(f_ref.shape[2:], jnp.float32)
-        C = jnp.zeros(f_ref.shape[2:], jnp.float32)
-        for k in range(steps):
-            d = TWO_PI * k / steps
-            fk = rawf_e(e, base + k)
-            S = S + fk * math.sin(d)
-            C = C + fk * math.cos(d)
+        S, C = _phase_sums(partial(rawf_e, e), base, steps)
         B = (2.0 / steps) * jnp.sqrt(S * S + C * C)      # raw units
         white = raw_e(e, 0)
         usable = ((white - raw_e(e, 1)) > tau_black) & (white < tau_sat)
@@ -585,14 +519,7 @@ def _hdr_kernel(params_ref, f_ref, pts_ref, mask_ref, qual_ref, xp_ref,
         Ss.append(S)
         Cs.append(C)
         if row_steps:
-            base_r = base + steps
-            Sr = jnp.zeros(S.shape, jnp.float32)
-            Cr = jnp.zeros(S.shape, jnp.float32)
-            for k in range(row_steps):
-                d = TWO_PI * k / row_steps
-                fk = rawf_e(e, base_r + k)
-                Sr = Sr + fk * math.sin(d)
-                Cr = Cr + fk * math.cos(d)
+            Sr, Cr = _phase_sums(partial(rawf_e, e), base + steps, row_steps)
             Srs.append(Sr)
             Crs.append(Cr)
 
@@ -610,15 +537,15 @@ def _hdr_kernel(params_ref, f_ref, pts_ref, mask_ref, qual_ref, xp_ref,
     # is >= the best single exposure's B_max/sigma — always.
     if fuse == "sum":
         wts = [jnp.where(usables[e], Bs[e], 0.0) for e in range(E)]
-        wnorm = jnp.zeros(Bs[0].shape, jnp.float32)
-        for wv in wts:
+        wnorm = wts[0]
+        for wv in wts[1:]:
             wnorm = wnorm + wv
         wnorm = jnp.maximum(wnorm, 1e-20)
         wts = [wv / wnorm for wv in wts]
 
     def usum(vals):
-        out = jnp.zeros(vals[0].shape, jnp.float32)
-        for e in range(E):
+        out = wts[0] * vals[0]
+        for e in range(1, E):
             out = out + wts[e] * vals[e]
         return out
 
@@ -632,19 +559,17 @@ def _hdr_kernel(params_ref, f_ref, pts_ref, mask_ref, qual_ref, xp_ref,
         raw_sel, None, certain, contrast,
         bits=bits, row_bits=row_bits, steps=steps, row_steps=row_steps,
         tau_white=tau_white, tau_mod=tau_mod, scale=scale,
-        pitch=pitch, row_pitch=row_pitch,
+        pitch=p[33], row_pitch=p[34],
         SC=(combine(Ss), combine(Cs)),
         SC_row=(combine(Srs), combine(Crs)) if row_steps else None)
 
     _triangulate_write(p, x_p, y_p, mask, modulation,
                        pts_ref, mask_ref, qual_ref, xp_ref, yp_ref,
-                       row_bits=row_bits, tile_h=tile_h,
-                       undistort_iters=undistort_iters)
+                       row_bits=row_bits, undistort_iters=undistort_iters)
 
 
 @partial(jax.jit, static_argnames=("cfg", "dec", "saturation", "z_bounds",
-                                   "tile_h", "undistort_iters",
-                                   "bit_depth", "fuse"))
+                                   "undistort_iters", "bit_depth", "fuse"))
 def fused_decode_triangulate_hdr(
     stacks,                  # (E, F, H, W) exposure-bracketed stacks
     cam: Camera,
@@ -653,42 +578,28 @@ def fused_decode_triangulate_hdr(
     dec: DecodeConfig,
     saturation: float = 0.98,
     z_bounds=(1.0, 1e4),
-    tile_h: int = 32,
     undistort_iters: int = 8,
     bit_depth: int | None = None,
     row_offset=0.0,
     fuse: str = "sum",
 ) -> FusedScanOut:
     """HDR variant of the one-pass scan reconstruction: a bracket of E
-    captures costs E reads of the frame bytes in ONE kernel (uint8 path:
-    E bytes/px/frame of HBM traffic) rather than E full pure-JAX decode
-    passes plus a selection gather. gray_phase coding only.
+    captures is read once in ONE kernel rather than E full pure-JAX
+    decode passes plus a selection gather. gray_phase coding only.
 
     ``fuse``: "sum" (default) variance-weights the phase sin/cos sums of
-    ALL usable exposures (strictly more signal per pixel — VERDICT r4
-    next #5); "select" reproduces decode_multi_exposure's best-single-
-    exposure pick (the parity oracle). Gray bits always come from the
-    best exposure — they are thresholded binary decisions."""
+    ALL usable exposures (strictly more signal per pixel); "select"
+    reproduces decode_multi_exposure's best-single-exposure pick (the
+    parity oracle). Gray bits always come from the best exposure — they
+    are thresholded binary decisions."""
     assert cfg.coding == "gray_phase" and cfg.use_inverse
     assert cfg.phase_steps > 0, "HDR selection needs phase modulation"
     E, F, H, W = stacks.shape
     assert F == cfg.num_frames, (F, cfg.num_frames)
-    scale, in_bytes, tau_black_k, tau_white_k, tau_mod_k = _raw_thresholds(
+    scale, in_bytes, tau_black, tau_white, tau_mod = _raw_thresholds(
         stacks.dtype, bit_depth, dec)
-    if scale != 1.0:
-        m = int(round(1.0 / scale))
-        tau_sat_k = int(round(saturation * m))
-    else:
-        tau_sat_k = saturation
-
-    Wp = round_up(W, 128)
-    # same scoped-VMEM clamp as the single-exposure kernel (E x F block)
-    while tile_h > 8 and E * F * tile_h * Wp * in_bytes > 4 * 2 ** 20:
-        tile_h //= 2
-    Hp = round_up(H, tile_h)
-    if (Wp, Hp) != (W, H):
-        stacks = jnp.pad(stacks, ((0, 0), (0, 0), (0, Hp - H), (0, Wp - W)))
-
+    tau_sat = (int(round(saturation * round(1.0 / scale)))
+               if scale != 1.0 else saturation)
     params = _pack_params(cam, proj, cfg, dec, z_bounds, row_offset)
     kern = partial(
         _hdr_kernel,
@@ -697,59 +608,15 @@ def fused_decode_triangulate_hdr(
         row_bits=cfg.row_gray_bits,
         steps=cfg.phase_steps,
         row_steps=cfg.row_phase_steps,
-        tile_h=tile_h,
         undistort_iters=undistort_iters,
         scale=scale,
-        tau_black=tau_black_k,
-        tau_white=tau_white_k,
-        tau_mod=tau_mod_k,
-        tau_sat=tau_sat_k,
+        tau_black=tau_black,
+        tau_white=tau_white,
+        tau_mod=tau_mod,
+        tau_sat=tau_sat,
         fuse=fuse,
     )
-    grid = (Hp // tile_h,)
-    pts, mask, qual, xp, yp = pl.pallas_call(
-        kern,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, params.shape[1]), lambda i: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((E, F, tile_h, Wp), lambda i: (0, 0, i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((3, tile_h, Wp), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_h, Wp), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_h, Wp), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_h, Wp), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_h, Wp), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((3, Hp, Wp), jnp.float32),
-            jax.ShapeDtypeStruct((Hp, Wp), jnp.float32),
-            jax.ShapeDtypeStruct((Hp, Wp), jnp.float32),
-            jax.ShapeDtypeStruct((Hp, Wp), jnp.float32),
-            jax.ShapeDtypeStruct((Hp, Wp), jnp.float32),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=(40 + 6 * E * (cfg.phase_steps + cfg.row_phase_steps)
-                   + 4 * (cfg.gray_bits + cfg.row_gray_bits)
-                   + 14 * undistort_iters) * Hp * Wp,
-            bytes_accessed=(E * F * in_bytes + 6 * 4) * Hp * Wp,
-            transcendentals=3 * Hp * Wp,
-        ),
-        interpret=use_interpret(),
-    )(params, stacks)
-
-    if (Wp, Hp) != (W, H):
-        pts = pts[:, :H, :W]
-        mask = mask[:H, :W]
-        qual = qual[:H, :W]
-        xp = xp[:H, :W]
-        yp = yp[:H, :W]
-    return FusedScanOut(points=pts, mask=mask, quality=qual, x_p=xp,
-                        y_p=yp)
+    flops_per_px = (40 + 6 * E * (cfg.phase_steps + cfg.row_phase_steps)
+                    + 4 * (cfg.gray_bits + cfg.row_gray_bits)
+                    + 14 * undistort_iters)
+    return _call(kern, params, stacks, H, W, flops_per_px, E * F * in_bytes)

@@ -29,11 +29,15 @@ def load_native():
         return None
     try:
         if (not _LIB.exists()) or _LIB.stat().st_mtime < _SRC.stat().st_mtime:
+            # build to a per-process name, then rename: concurrent first
+            # uses (parallel test workers) never load a half-written file
+            tmp = _LIB.with_suffix(f".{os.getpid()}.tmp")
             subprocess.run(
-                ["g++", "-O3", "-shared", "-fPIC", "-o", str(_LIB), str(_SRC)],
+                ["g++", "-O3", "-shared", "-fPIC", "-o", str(tmp), str(_SRC)],
                 check=True,
                 capture_output=True,
             )
+            os.replace(tmp, _LIB)
         lib = ctypes.CDLL(str(_LIB))
         lib.slr_write_ply.restype = ctypes.c_int
         lib.slr_write_ply.argtypes = [

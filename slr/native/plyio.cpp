@@ -23,7 +23,7 @@ int slr_write_ply(const char* path, int64_t n, const float* xyz,
   FILE* f = fopen(path, "wb");
   if (!f) return 1;
   std::string header = "ply\nformat binary_little_endian 1.0\n";
-  header += "comment slr tpu-native structured-light engine\n";
+  header += "comment slr structured-light engine\n";
   header += "element vertex " + std::to_string(n) + "\n";
   header += "property float x\nproperty float y\nproperty float z\n";
   if (normals)

@@ -2,11 +2,11 @@
 
 The reference has Qt debug prints and manual timing; the build provides:
 - stage_timer: wall-clock stage timing with block_until_ready semantics,
-  emitted as JSON-lines (the bench harness and BASELINE.md feed off this);
+  emitted as JSON-lines;
 - trace(): jax.profiler wrapper producing TensorBoard-compatible traces;
-- roofline(): bytes/flops -> speed-of-light fraction for a kernel, used to
-  check the decode/unwrap/triangulate kernels against the [B:5]
-  "speed-of-light HBM bandwidth" target;
+- roofline(): bytes/flops -> speed-of-light fraction for a kernel against
+  the published peaks of the device it ran on (PEAKS, keyed by
+  ``device_kind``);
 - host-0 gating for multi-process runs (multihost_utils analog).
 
 NaN/debug gates (the race-detector analog for a functional runtime):
@@ -25,10 +25,25 @@ from typing import Optional
 
 import jax
 
-# v5e reference numbers (per chip)
-HBM_GBPS = 810.0
-BF16_TFLOPS = 394.0
-F32_TFLOPS = 98.5
+# Published per-device peaks, keyed by jax.devices()[i].device_kind.
+# NVIDIA H100 SXM data sheet, dense rates without sparsity, at the full
+# 700 W power limit: HBM3 3.35 TB/s, f32 (no tensor cores) 67 TFLOP/s,
+# bf16 tensor cores 989 TFLOP/s. A card set below 700 W cannot hold
+# these clocks: report the power limit beside any share of them.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {"hbm_gbps": 3350.0, "f32_tflops": 67.0,
+                              "bf16_tflops": 989.0},
+}
+
+
+def device_peaks(device_kind: Optional[str] = None) -> dict:
+    """Peak table entry for ``device_kind`` (default: the first JAX
+    device). A device without an entry is an error, never a default."""
+    kind = device_kind or jax.devices()[0].device_kind
+    if kind not in PEAKS:
+        raise KeyError(f"no published peaks for device kind {kind!r}; "
+                       f"known: {sorted(PEAKS)}")
+    return PEAKS[kind]
 
 
 def is_host0() -> bool:
@@ -79,10 +94,13 @@ def time_fn(fn, *args, iters: int = 5, warmup: int = 1, **kw) -> float:
     return ts[len(ts) // 2]
 
 
-def roofline(bytes_accessed: float, flops: float, measured_ms: float) -> dict:
-    """Speed-of-light fractions for a memory/compute-bound kernel."""
-    t_mem_ms = bytes_accessed / (HBM_GBPS * 1e9) * 1e3
-    t_cmp_ms = flops / (F32_TFLOPS * 1e12) * 1e3
+def roofline(bytes_accessed: float, flops: float, measured_ms: float,
+             device_kind: Optional[str] = None) -> dict:
+    """Speed-of-light fractions for a memory/compute-bound f32 kernel
+    against the published peaks of ``device_kind``."""
+    pk = device_peaks(device_kind)
+    t_mem_ms = bytes_accessed / (pk["hbm_gbps"] * 1e9) * 1e3
+    t_cmp_ms = flops / (pk["f32_tflops"] * 1e12) * 1e3
     bound = "memory" if t_mem_ms >= t_cmp_ms else "compute"
     sol_ms = max(t_mem_ms, t_cmp_ms)
     return {
@@ -94,6 +112,49 @@ def roofline(bytes_accessed: float, flops: float, measured_ms: float) -> dict:
     }
 
 
+def _union_ns(spans) -> int:
+    """Total length of the union of (start, end) intervals."""
+    busy, cur = 0, None
+    for a, b in sorted(spans):
+        if cur is None or a > cur[1]:
+            if cur is not None:
+                busy += cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    return busy + (cur[1] - cur[0] if cur is not None else 0)
+
+
+def device_time_ms(fn, *args, n: int = 10) -> Optional[dict]:
+    """Device time of ``fn(*args)`` from a profiler trace of ``n`` calls
+    (after one warm-up call): ``busy_ms`` = union of the device's event
+    intervals per call, ``events`` = {event name: ms per call}. None when
+    the trace holds no accelerator plane (the CPU backend)."""
+    import glob
+    import tempfile
+
+    from jax._src.profiler import ProfileData
+
+    jax.block_until_ready(fn(*args))
+    with tempfile.TemporaryDirectory() as d:
+        with jax.profiler.trace(d):
+            for _ in range(n):
+                jax.block_until_ready(fn(*args))
+        paths = glob.glob(f"{d}/plugins/profile/*/*.xplane.pb")
+        planes = [pl for pl in ProfileData.from_file(paths[0]).planes
+                  if pl.name.startswith("/device:")]
+        spans, by_name = [], {}
+        for plane in planes:
+            for line in plane.lines:
+                for ev in line.events:
+                    spans.append((ev.start_ns, ev.start_ns + ev.duration_ns))
+                    by_name[ev.name] = (by_name.get(ev.name, 0.0)
+                                        + ev.duration_ns / n / 1e6)
+    if not spans:
+        return None
+    return {"busy_ms": _union_ns(spans) / n / 1e6, "events": by_name}
+
+
 @contextlib.contextmanager
 def trace(logdir: str = "/tmp/slr_trace"):
     """jax.profiler trace context (TensorBoard-compatible output)."""
@@ -102,62 +163,3 @@ def trace(logdir: str = "/tmp/slr_trace"):
         yield logdir
     finally:
         jax.profiler.stop_trace()
-
-
-# ---- communicated-bytes accounting (VERDICT r3 next #3) -------------------
-#
-# On a 1-chip rig the only honest multi-host scaling argument is (measured
-# on-chip compute time) vs (exactly-known communicated bytes) over the
-# interconnect: every collective in the engine moves a statically-known
-# volume per iteration, so per-stage efficiency projects as
-#   eff(N) = t_compute / (t_compute + t_comm(N) + n_coll * latency).
-# These helpers compute the volumes from shapes; benchmarks/scaling_r4.py
-# combines them with the measured matrix rows into scaling_r4.jsonl, and
-# BASELINE.md's scaling section quotes that artifact.
-
-ICI_GBPS = 180.0    # v5e per-link ICI, one direction (2D torus, 4 links)
-DCN_GBPS = 25.0     # conservative per-host data-center network
-
-
-def comm_halo_bytes(width: int, halo: int, dtype_bytes: int = 4,
-                    n_arrays: int = 1, iters: int = 1) -> int:
-    """Bytes ppermuted PER DEVICE per sharded-unwrap call: two ring
-    sends (up+down) of ``halo`` rows per array per iteration
-    (slr/dist/halo.py + slr/dist/sharded.py)."""
-    return 2 * halo * width * dtype_bytes * n_arrays * iters
-
-
-def comm_schur_bytes(n_poses: int, iters: int = 1) -> int:
-    """Bytes psummed per device per distributed-BA solve: the reduced
-    (6S x 6S) pose system + rhs + 2 scalars, once per GN iteration
-    (slr/dist/ba.py:205-208). A psum over N devices moves ~2x the
-    payload per device (reduce-scatter + all-gather)."""
-    s = 6 * n_poses
-    return (s * s + s + 2) * 4 * 2 * iters
-
-
-def comm_batched_icp_bytes(n_edges_local: int, iters: int = 1) -> int:
-    """The map_block-sharded registration round communicates nothing
-    per edge (edges are block-local); only the final pose table is
-    allgathered: 12 floats per edge."""
-    return n_edges_local * 12 * 4 * iters
-
-
-def scaling_projection(compute_ms: float, comm_bytes_per_dev: int,
-                       n_collectives: int, gbps: float,
-                       latency_us: float = 1.0) -> dict:
-    """Projected parallel efficiency of one stage: compute time is
-    measured on the real chip, comm time = exact volume / interconnect
-    bandwidth + per-collective latency. Returns the full accounting so
-    the artifact is auditable."""
-    t_comm_ms = (comm_bytes_per_dev / (gbps * 1e9)) * 1e3 \
-        + n_collectives * latency_us * 1e-3
-    eff = compute_ms / (compute_ms + t_comm_ms)
-    return {
-        "compute_ms": compute_ms,
-        "comm_bytes_per_dev": int(comm_bytes_per_dev),
-        "n_collectives": n_collectives,
-        "interconnect_gbps": gbps,
-        "comm_ms": t_comm_ms,
-        "efficiency": eff,
-    }

@@ -1,9 +1,9 @@
 """Single-scan reconstruction pipelines (configs 1-3, SURVEY.md E4).
 
-``reconstruct_scan`` is the general path (any pattern config, pure JAX ops
-— XLA still fuses well); ``reconstruct_dense`` is the flagship production
-path: the fused Pallas kernel + optional spatial quality repair + color
-attach + projector-pixel accumulation, one jit graph end-to-end.
+``reconstruct_scan`` is the general path (any pattern config, pure JAX
+ops); ``reconstruct_dense`` is the flagship production path: the fused
+Pallas kernel + optional spatial quality repair + color attach +
+projector-pixel accumulation, one jit graph end-to-end.
 """
 
 from __future__ import annotations
@@ -16,10 +16,10 @@ import jax.numpy as jnp
 
 from slr.config import DecodeConfig, PatternConfig, ReconstructConfig
 from slr.codec import decode_stack
-from slr.codec.unwrap import spatial_quality_unwrap
+from slr.codec.unwrap import quality_guided_repair, spatial_quality_unwrap
 from slr.geom.camera import Camera
 from slr.geom.triangulate import triangulate_plane, triangulate_rays
-from slr.kernels import fused_decode_triangulate, quality_unwrap_pallas
+from slr.kernels import fused_decode_triangulate
 
 TWO_PI = 2.0 * jnp.pi
 
@@ -83,10 +83,9 @@ def reconstruct_scan_hdr(
     Colors come from the bracket's brightest unsaturated white frame.
 
     Production route (gray_phase + inverse codes): ONE Pallas kernel
-    reads all E stacks, selects per pixel in VMEM and decodes once
-    (fused_decode_triangulate_hdr — E x the single-exposure HBM bill
-    instead of E dense pure-JAX decodes + gather; VERDICT r3 next #5).
-    Other codings fall back to slr.codec.decode_multi_exposure."""
+    reads all E stacks, selects per pixel in registers and decodes once
+    (fused_decode_triangulate_hdr) instead of E dense pure-JAX decodes
+    plus a gather. Other codings take slr.codec.decode_multi_exposure."""
     if (cfg.coding == "gray_phase" and cfg.use_inverse
             and cfg.phase_steps > 0):
         from slr.kernels.fused_scan import fused_decode_triangulate_hdr
@@ -100,6 +99,24 @@ def reconstruct_scan_hdr(
         return ScanCloud(points=jnp.moveaxis(out.points, 0, -1),
                          mask=out.mask > 0.5, colors=colors,
                          quality=out.quality, x_p=out.x_p)
+    return reconstruct_hdr_plain(stacks, cam, proj, cfg, dec, rec,
+                                 saturation)
+
+
+@partial(jax.jit, static_argnames=("cfg", "dec", "rec", "saturation"))
+def reconstruct_hdr_plain(
+    stacks,
+    cam: Camera,
+    proj: Camera,
+    cfg: PatternConfig,
+    dec: DecodeConfig = DecodeConfig(),
+    rec: ReconstructConfig = ReconstructConfig(),
+    saturation: float = 0.98,
+) -> ScanCloud:
+    """Plain-XLA bracket reconstruction: E vmapped decode_stack passes,
+    best-single-exposure selection (slr.codec.decode_multi_exposure),
+    then triangulation. The route for codings the HDR kernel does not
+    cover, and the kernel's yardstick."""
     from slr.codec import decode_multi_exposure
 
     res = decode_multi_exposure(stacks, cfg, dec, saturation=saturation)
@@ -131,20 +148,20 @@ def reconstruct_dense(
     spatial_iters: int = 0,
     spatial_mode: str = "voting",
 ) -> ScanCloud:
-    """Flagship fused path (config 3): Pallas kernel end-to-end.
+    """Flagship fused path (config 3): the fused Pallas kernel.
 
     Column-only coding triangulates via the projector-column plane;
     row+column coding uses the fused midpoint kernel. When
     ``spatial_iters`` > 0 the quality-guided repair runs on the absolute
     phase between decode and re-triangulation (only the repaired x_p
-    re-enters the plane solve — cheap VPU math, no second HBM pass over
-    the frames; column-plane re-triangulation only).
+    re-enters the plane solve — no second pass over the frames;
+    column-plane re-triangulation only).
 
-    ``spatial_mode``: "voting" = strict-consensus Pallas sweep (isolated
-    order errors, conservative default); "wavefront" = quality-ordered
-    threshold-lowering front (quality_guided_repair) which also repairs
-    multi-pixel order-error blobs, with spatial_iters as its
-    rounds-per-level.
+    ``spatial_mode``: "voting" = strict-consensus sweeps
+    (spatial_quality_unwrap: isolated order errors, conservative
+    default); "wavefront" = quality-ordered threshold-lowering front
+    (quality_guided_repair, two levels) which also repairs multi-pixel
+    order-error blobs, with spatial_iters // 4 as its rounds-per-level.
     """
     out = fused_decode_triangulate(
         frames, cam, proj, cfg, dec, z_bounds=(rec.min_depth, rec.max_depth)
@@ -158,14 +175,12 @@ def reconstruct_dense(
                  else cfg.fringe_pitch)
         Phi = x_p * (TWO_PI / pitch)
         if spatial_mode == "wavefront":
-            from slr.kernels.wavefront import wavefront_repair_pallas
-
-            Phi = wavefront_repair_pallas(
-                Phi, out.quality, mask,
+            Phi = quality_guided_repair(
+                Phi, out.quality, mask, levels=2,
                 rounds_per_level=max(1, spatial_iters // 4))
         else:
-            Phi = quality_unwrap_pallas(Phi, out.quality, mask,
-                                        iters=spatial_iters)
+            Phi = spatial_quality_unwrap(Phi, out.quality, mask,
+                                         iters=spatial_iters)
         x_p2 = Phi * (pitch / TWO_PI)
         changed = jnp.abs(x_p2 - x_p) > 1e-6
         H, W = x_p.shape

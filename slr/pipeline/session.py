@@ -64,9 +64,9 @@ class Session:
 
         Built lazily on first use: ``pixel_tiles`` shards image rows
         inside each scan, ``map_blocks`` shards scans/landmark fragments.
-        None when the config is single-device or the machine has fewer
-        devices than the requested layout (everything falls back to the
-        single-device paths)."""
+        None when the config is single-device. Raises when the machine
+        has fewer devices than the requested layout: a run configured for
+        N devices never silently runs on one."""
         if self._mesh is not None:
             return self._mesh
         d = self.config.dist
@@ -76,10 +76,11 @@ class Session:
         import jax
 
         if len(jax.devices()) < n:
-            from slr.observability import log_event
-            log_event("mesh_fallback", requested=n,
-                      available=len(jax.devices()))
-            return None
+            raise RuntimeError(
+                f"config.dist asks for {n} devices (pixel_tiles="
+                f"{d.pixel_tiles} x map_blocks={d.map_blocks}), but only "
+                f"{len(jax.devices())} {jax.default_backend()} device(s) "
+                "exist")
         from slr.dist import make_mesh
 
         self._mesh = make_mesh(pixel_tiles=d.pixel_tiles,

@@ -4,12 +4,12 @@ Upgrade over point-level voxel merging (SURVEY.md component 17, the
 reference's ``MeshCreator``-style fusion/export): registered scans are
 integrated into a truncated-signed-distance volume (Curless–Levoy style
 weighted averaging) and a watertight-ish triangle mesh is extracted at
-the zero crossing. Both stages are TPU-native:
+the zero crossing. Both stages are dense device work:
 
 - ``tsdf_integrate`` is one jit over the dense voxel grid: every voxel is
   projected into the scan camera, the organized depth map is bilinearly
   sampled, and tsdf/weight/color are updated in place — pure data-parallel
-  VPU work, no scatter.
+  work, no scatter.
 - ``extract_mesh`` is two stages: a jitted active-cube mask over the full
   grid, a host compaction of active cube indices (export-level, per the
   build plan), then a jitted marching-tetrahedra pass over the padded
@@ -110,10 +110,9 @@ def tsdf_integrate(vol: TSDFVolume, cloud: ScanCloud, cam: Camera,
     rig origin, per the scan frame convention).
 
     The depth/valid/color maps are PACKED into one (H, W, 3) array and
-    sampled with a single 4-corner gather: TPU executes random-access
-    gathers near-serially per row, so 16 scalar gathers per voxel
-    (separate depth + valid + color bilinears) cost ~4x the 4 packed
-    ones (253 -> 59 ms per 128^3 integration on the v5e).
+    sampled with a single 4-corner gather: 4 packed gathers per voxel
+    instead of 16 scalar ones (separate depth + valid + color
+    bilinears).
     """
     pts_w = _voxel_centers(vol)                        # (D,H,W,3) volume frame
     # volume frame -> scan camera frame

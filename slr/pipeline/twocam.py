@@ -8,9 +8,11 @@ entirely. Requires a pattern config that codes BOTH projector axes
 (``row_gray_bits > 0``) so each camera pixel decodes to a full projector
 coordinate (x_p, y_p).
 
-TPU-first correspondence: instead of the reference-class per-pixel search
-along epipolar lines, we rendezvous in projector space with one scatter and
-one gather — both dense, fixed-shape, VPU-friendly ops:
+Correspondence: instead of the reference-class per-pixel search along
+epipolar lines, the default "merge" method inverts both cameras' code maps
+onto the projector grid (``invert_to_projector``). The "splat" method
+meets in projector space with one scatter and one gather — both
+dense, fixed-shape ops:
 
 1. **splat** — every valid cam-2 pixel bilinearly splats moving-least-
    squares MOMENTS of its own image coordinates (u2, v2), weighted by
@@ -53,8 +55,7 @@ _NM = 13
 
 def _splat_moments(x_p, y_p, w, u, v, proj_w: int, proj_h: int):
     """Bilinearly scatter the MLS moment vector into a (proj_h, proj_w,
-    13) grid. One flattened scatter-add of a (4*H*W, 13) payload — XLA
-    lowers it to a single sorted segment-sum on TPU."""
+    13) grid. One flattened scatter-add of a (4*H*W, 13) payload."""
     x0 = jnp.floor(x_p)
     y0 = jnp.floor(y_p)
     fx = x_p - x0
@@ -175,11 +176,10 @@ def match_via_depth_search(
     which cam 2's decoded column code under the ray point's cam-2
     projection equals the query code.
 
-    The splat/gather path is exact but its (4·H·W)-entry scatter-add is
-    the one op XLA cannot make fast on TPU (measured 0.59 s/scan at
-    1280×1024 — serial scatter). Here every step is a dense gather: as t
-    sweeps the bracket, the cam-2 pixel under proj2(ray1(t)) sweeps the
-    epipolar line and the surface code under it varies monotonically
+    Unlike the splat/gather path there is no scatter: every step is a
+    dense gather. As t sweeps the bracket, the cam-2 pixel under
+    proj2(ray1(t)) sweeps the epipolar line and the surface code under
+    it varies monotonically
     except across occlusion jumps; at the true surface the codes match.
 
     Two phases, both fixed-iteration: a ``coarse`` uniform sweep of the
@@ -289,15 +289,12 @@ def invert_to_projector(x_p, y_p, mask, quality, white,
                         proj_w: int, proj_h: int, *,
                         dmin: float = 0.125, dmax: float = 2.5,
                         du_max: float = 8.0,
-                        flip_u: bool = False, flip_v: bool = False,
-                        use_kernel: bool = True):
+                        flip_u: bool = False, flip_v: bool = False):
     """One camera's decoded code maps inverted onto the projector pixel
     grid: for every integer projector coordinate (k, j), the sub-pixel
     CAMERA position (u, v) that observes it, plus quality/intensity
-    carried along. This is the TPU-native replacement for both the
-    moment-splat (scatter-bound) and the epipolar depth search
-    (gather-bound): two separable monotone-crossing passes, each ONE
-    one-hot matmul per row on the MXU (slr.kernels.crossing).
+    carried along: two separable monotone-crossing passes, each ONE
+    one-hot contraction per row (slr.pipeline.crossing).
 
     Pass 1 inverts x_p along each image row (x_p is monotone in u for a
     horizontally-separated rig; set ``flip_u`` for mirrored mounts),
@@ -317,7 +314,7 @@ def invert_to_projector(x_p, y_p, mask, quality, white,
 
     Returns (valid, u, v, q, w), all (proj_h, proj_w).
     """
-    from slr.kernels.crossing import crossing_interp, crossing_interp_fused
+    from slr.pipeline.crossing import crossing_interp
 
     H, W = x_p.shape
     u_i = jax.lax.broadcasted_iota(jnp.float32, (H, W), 1)
@@ -329,21 +326,10 @@ def invert_to_projector(x_p, y_p, mask, quality, white,
     # x can still jump in y across a shallow silhouette — interpolating
     # there would bridge two surfaces (phantom points the ray-gap gate
     # cannot see, since both cameras bridge the same jump consistently).
-    # The fused route applies the same veto in-kernel (gates=).
-    # fused route needs the full row in one block AND its per-row
-    # (num_bins, pairs) one-hot to fit scoped VMEM (16 MB): bound
-    # Kp * Up * 4 B well under it; larger rigs take the tiled route
-    fused = (use_kernel and max(H, W) <= 2560
-             and max(proj_w, proj_h) * max(H, W) * 4 <= 8 * 2 ** 20)
-    if fused:
-        cnt1, (u1, y1, q1, w1) = crossing_interp_fused(
-            x_p, mask, ch1, proj_w, interp=(True, True, False, False),
-            gates=((1, dmax),), dmin=dmin, dmax=dmax)
-    else:
-        gate1 = jnp.abs(y_p[:, 1:] - y_p[:, :-1]) < dmax
-        cnt1, (u1, y1, q1, w1) = crossing_interp(
-            x_p, mask, ch1, proj_w, interp=(True, True, False, False),
-            dmin=dmin, dmax=dmax, use_kernel=use_kernel, pair_gate=gate1)
+    gate1 = jnp.abs(y_p[:, 1:] - y_p[:, :-1]) < dmax
+    cnt1, (u1, y1, q1, w1) = crossing_interp(
+        x_p, mask, ch1, proj_w, interp=(True, True, False, False),
+        dmin=dmin, dmax=dmax, pair_gate=gate1)
 
     code2 = y1.T                       # (proj_w, H)
     valid2 = (cnt1 > 0.5).T
@@ -356,15 +342,10 @@ def invert_to_projector(x_p, y_p, mask, quality, white,
     # same continuity veto on the carried camera-u position (``du_max``
     # cam px): fore/background bridges jump in disparity even when the
     # y-code step stays under dmax
-    if fused:
-        cnt2, (u_t, v_t, q_t, w_t) = crossing_interp_fused(
-            code2, valid2, ch2, proj_h, interp=(True, True, False, False),
-            gates=((0, du_max),), dmin=dmin, dmax=dmax)
-    else:
-        gate2 = jnp.abs(u2c[:, 1:] - u2c[:, :-1]) < du_max
-        cnt2, (u_t, v_t, q_t, w_t) = crossing_interp(
-            code2, valid2, ch2, proj_h, interp=(True, True, False, False),
-            dmin=dmin, dmax=dmax, use_kernel=use_kernel, pair_gate=gate2)
+    gate2 = jnp.abs(u2c[:, 1:] - u2c[:, :-1]) < du_max
+    cnt2, (u_t, v_t, q_t, w_t) = crossing_interp(
+        code2, valid2, ch2, proj_h, interp=(True, True, False, False),
+        dmin=dmin, dmax=dmax, pair_gate=gate2)
     return ((cnt2 > 0.5).T, u_t.T, v_t.T, q_t.T, w_t.T)
 
 
@@ -409,8 +390,7 @@ def _bilinear(img, x, y):
 @partial(jax.jit, static_argnames=("cfg", "dec", "rec", "max_ray_gap",
                                    "min_weight", "max_resid", "code_tol",
                                    "edge_tol", "method", "search_iters",
-                                   "flip_u", "flip_v", "merge_dmax",
-                                   "merge_kernel", "unsafe_search"))
+                                   "flip_u", "flip_v", "merge_dmax"))
 def reconstruct_two_camera(
     frames1,
     frames2,
@@ -429,8 +409,6 @@ def reconstruct_two_camera(
     flip_u: bool = False,
     flip_v: bool = False,
     merge_dmax: float = 2.5,
-    merge_kernel: bool = True,
-    unsafe_search: bool = False,
 ) -> ScanCloud:
     """Decode both stacks, rendezvous in projector space, triangulate
     cam-1 x cam-2 rays. Projector calibration is NOT an input: only the two
@@ -440,22 +418,19 @@ def reconstruct_two_camera(
 
     - "merge" (default): monotone-crossing inversion of both cameras'
       code maps onto the projector grid (``invert_to_projector``) —
-      no scatters, no gathers, two one-hot MXU matmul passes per camera
-      (slr.kernels.crossing; VERDICT r3 next #1). Most accurate of the
-      three (0.012 mm vs 0.028 search / 0.108 splat on the test rig)
-      AND the TPU-fast path. The organized output lives on the
+      no scatters, no gathers, two one-hot contraction passes per
+      camera (slr.pipeline.crossing). The most accurate of the three
+      on the test rig. The organized output lives on the
       (proj_h, proj_w) grid, one cell per projector pixel — the natural
       sampling of a structured-light scanner. Left-right consistency is
       by construction; ``merge_dmax`` is the anti-phantom jump gate
-      (see invert_to_projector), ``merge_kernel=False`` selects the
-      pure-JAX oracle contraction (tests / tiny maps).
-    - "splat": moment-splat/MLS-gather rendezvous on the cam-1 grid.
-      Its (4·H·W)-entry scatter-add is the one op XLA executes near-
-      serially on TPU (0.59 s/scan at 1280×1024) — kept as the oracle
-      for the merge path and for cam-1-grid-organized output.
+      (see invert_to_projector).
+    - "splat": moment-splat/MLS-gather rendezvous on the cam-1 grid,
+      one (4·H·W)-entry scatter-add — kept as the oracle for the merge
+      path and for cam-1-grid-organized output.
     - "search": epipolar depth sweep + bisection over [rec.min_depth,
       rec.max_depth] (clipped per pixel to cam 2's frustum); ~70 full-
-      frame bilinear gathers, 4.0 s/scan on TPU. Set rec.min/max_depth
+      frame bilinear gathers. Set rec.min/max_depth
       to the scanner's working volume: with the default [1, 1e4]
       bracket the coarse sweep can step over narrow surface bands and
       coverage drops ~15 %.
@@ -478,30 +453,8 @@ def reconstruct_two_camera(
             "two-camera mode needs both projector axes coded: set "
             "row_gray_bits (+ optionally row_phase_steps) in PatternConfig")
 
-    # decode through the fused Pallas kernel's decode_only route when the
-    # config supports it (r5: the pure-JAX decode_stack was ~2 ms/camera
-    # of the merge path's 8 ms — the kernel reads the frame stack once
-    # and emits the code maps at HBM speed; no projector model needed).
-    # Off-accelerator the kernel would run in interpret mode — strictly
-    # slower than the vectorized decode_stack — so gate on the backend.
-    from slr.kernels.common import use_interpret
-
-    if (cfg.coding == "gray_phase" and cfg.use_inverse and cfg.phase_steps
-            and not use_interpret()):
-        from slr.codec.patterns import DecodeResult
-        from slr.kernels.fused_scan import fused_decode_triangulate
-
-        def _dec(frames, cam):
-            o = fused_decode_triangulate(frames, cam, None, cfg, dec,
-                                         decode_only=True)
-            return DecodeResult(x_p=o.x_p, y_p=o.y_p, mask=o.mask > 0.5,
-                                quality=o.quality)
-
-        r1 = _dec(frames1, cam1)
-        r2 = _dec(frames2, cam2)
-    else:
-        r1 = decode_stack(frames1, cfg, dec)
-        r2 = decode_stack(frames2, cfg, dec)
+    r1 = decode_stack(frames1, cfg, dec)
+    r2 = decode_stack(frames2, cfg, dec)
     if r1.y_p is None:
         raise ValueError("decode produced no projector-row coordinate")
 
@@ -515,8 +468,8 @@ def reconstruct_two_camera(
     edge1 = _code_edge_mask(r1.x_p, r1.y_p, r1.mask, edge_tol)
     edge2 = _code_edge_mask(r2.x_p, r2.y_p, r2.mask, edge_tol)
     if method == "merge":
-        # TPU-native default: both cameras' code maps inverted onto the
-        # projector grid by separable monotone-crossing MXU passes; the
+        # default: both cameras' code maps inverted onto the projector
+        # grid by separable monotone-crossing passes; the
         # organized output lives on the (proj_h, proj_w) grid — every
         # cell where both cameras found the code triangulates, and
         # left-right consistency is BY CONSTRUCTION (both rays decode
@@ -524,13 +477,11 @@ def reconstruct_two_camera(
         m1 = invert_to_projector(
             r1.x_p, r1.y_p, r1.mask & edge1, r1.quality,
             _white_color(frames1), cfg.proj_width, cfg.proj_height,
-            dmax=merge_dmax, flip_u=flip_u, flip_v=flip_v,
-            use_kernel=merge_kernel)
+            dmax=merge_dmax, flip_u=flip_u, flip_v=flip_v)
         m2 = invert_to_projector(
             r2.x_p, r2.y_p, r2.mask & edge2, r2.quality,
             _white_color(frames2), cfg.proj_width, cfg.proj_height,
-            dmax=merge_dmax, flip_u=flip_u, flip_v=flip_v,
-            use_kernel=merge_kernel)
+            dmax=merge_dmax, flip_u=flip_u, flip_v=flip_v)
         valid = m1[0] & m2[0]
         o1m, d1m = pixel_to_ray(cam1, m1[1], m1[2])
         o2m, d2m = pixel_to_ray(cam2, m2[1], m2[2])
@@ -545,24 +496,6 @@ def reconstruct_two_camera(
         return ScanCloud(points=pts, mask=mk, colors=m1[4],
                          quality=quality, x_p=xp_grid)
     if method == "search":
-        # Product-layer fence for a reproduced CHIP-KILLER (VERDICT r4
-        # next #6): chaining >= 17 copies of this graph in one dispatch
-        # faulted the v5e with a device-lost UNAVAILABLE error twice
-        # (benchmarks/repro_search_fault.py; tpu_matrix_r4.jsonl error
-        # rows). "search" is an oracle path — "merge" is both faster
-        # (7.4 vs 4026 ms/scan) and more accurate (0.005 vs 0.19 mm) —
-        # so on accelerators it requires an explicit opt-in rather than
-        # letting a user loop themselves into a device fault.
-        if not unsafe_search and jax.default_backend() not in ("cpu",):
-            raise ValueError(
-                "method='search' is an oracle path that can fault TPU "
-                "devices when dispatched repeatedly (>=17 chained graphs "
-                "reproduce a device-lost error; see BASELINE.md and "
-                "benchmarks/repro_search_fault.py). Use the default "
-                "method='merge' (faster and more accurate), or pass "
-                "unsafe_search=True to accept the risk — then keep "
-                "chains short (<= 5 calls per dispatch was stable)."
-            )
         u2, v2, _ = match_via_depth_search(
             r1.x_p, r1.y_p, r2.x_p, r2.mask & edge2, cam1, cam2,
             t_lo=rec.min_depth, t_hi=rec.max_depth, iters=search_iters)

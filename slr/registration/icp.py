@@ -40,35 +40,25 @@ def _solve_point_to_plane(src, tgt, nrm, w):
     H = Aw.T @ A                                     # 6x6
     g = Aw.T @ e
     H = H + 1e-6 * jnp.eye(6, dtype=H.dtype)
-    # SPD normal equations: Cholesky avoids the TPU-hostile pivoted LU
+    # SPD normal equations: Cholesky, no pivoting needed
     xi = -jax.scipy.linalg.cho_solve(
         jax.scipy.linalg.cho_factor(H, lower=True), g)
     return xi, e
 
 
-# On CPU the voxel-hash lookup beats the exact tiled-matmul NN above
-# this many query*target pairs. On TPU it does NOT — the hash lookup is
-# searchsorted+gathers, and TPU executes random access near-serially:
-# measured 4.8 s for 15 ICP iterations at 64k (tpu_matrix_r4
-# icp_64k_voxel_15iter) vs ~0.5 s for the quadratic MXU brute force.
-# The TPU-first rule: a 4096x denser matmul beats pointer chasing.
+# Above this many query*target pairs the voxel-hash lookup replaces the
+# exact tiled brute force. The crossover was measured on the CPU; the
+# same rule applies on every backend (the GPU crossover is not measured).
 _EXACT_NN_MAX_PAIRS = 24_000 ** 2
 
 
 def _resolve_nn_method(nn_method: str, N: int, M: int) -> str:
-    """Resolve "auto" OUTSIDE jit so the choice tracks the backend of
-    each call site rather than being baked into the first cached trace
-    (ADVICE r4 #3). CPU: voxel hash above the crossover. TPU: the exact
-    MXU path wins at every size measured up to ~24k^2 (gathers are
-    near-serial); above that the sorted-band MXU kernel prunes dead
-    tile pairs while staying gather-free."""
+    """Resolve "auto" from the problem size alone (static shapes, so the
+    choice is the same inside and outside jit): exact below
+    _EXACT_NN_MAX_PAIRS source*target pairs, voxel hash above."""
     if nn_method != "auto":
         return nn_method
-    import jax as _jax
-
-    if _jax.default_backend() == "cpu":
-        return "voxel" if N * M > _EXACT_NN_MAX_PAIRS else "exact"
-    return "band" if N * M > _EXACT_NN_MAX_PAIRS else "exact"
+    return "voxel" if N * M > _EXACT_NN_MAX_PAIRS else "exact"
 
 
 def icp_point_to_plane(
@@ -83,51 +73,21 @@ def icp_point_to_plane(
     max_corr_dist: float = 10.0,
     nn_tile: int = 2048,
     nn_method: str = "auto",
-    band_b_max: int | None = None,
 ) -> ICPResult:
     """``nn_method``: "exact" = tiled-matmul brute force; "voxel" =
     static voxel-hash 27-neighbourhood lookup (exact whenever the true
     NN is within max_corr_dist, since the voxel edge equals that
-    distance); "band" = sorted-band MXU search (target sorted once
-    along its principal axis, tile pairs whose key intervals are
-    farther than max_corr_dist skipped — exact within max_corr_dist,
-    gather-free); "auto" picks per backend OUTSIDE jit: voxel above
-    ~24k^2 source*target pairs on CPU, band above the same crossover
-    on TPU, exact otherwise. Note that when this function is called
-    inside an outer jit, "auto" resolves against the trace-time default
-    backend."""
+    distance); "auto" = exact below ~24k^2 source*target pairs, voxel
+    above."""
     nn_method = _resolve_nn_method(
         nn_method, int(src.shape[0]), int(tgt.shape[0]))
-    if band_b_max is None:
-        band_b_max = 0
-        if nn_method == "band":
-            if isinstance(src, jax.core.Tracer):
-                # inside an outer jit/vmap trace the band cap's host
-                # sync cannot run; stay correct on the exact route
-                # (callers wanting band under jit pass band_b_max
-                # precomputed via suggest_b_max)
-                nn_method = "exact"
-            else:
-                from slr.registration.band import suggest_b_max
-
-                # static band cap measured from the actual geometry at
-                # the INITIAL POSE (one host sync per ICP call,
-                # amortized over all iterations) — measuring at the raw
-                # source positions would under-cap the band whenever a
-                # coarse-alignment init moves the cloud along the sort
-                # axis
-                moved0 = src if R0 is None else src @ R0.T
-                if t0 is not None:
-                    moved0 = moved0 + t0
-                band_b_max = suggest_b_max(moved0, tgt, max_corr_dist)
     return _icp_point_to_plane(
         src, tgt, tgt_normals, src_valid, tgt_valid, R0, t0,
         iters=iters, max_corr_dist=max_corr_dist, nn_tile=nn_tile,
-        nn_method=nn_method, band_b_max=band_b_max)
+        nn_method=nn_method)
 
 
-@partial(jax.jit, static_argnames=("iters", "nn_tile", "nn_method",
-                                   "band_b_max"))
+@partial(jax.jit, static_argnames=("iters", "nn_tile", "nn_method"))
 def _icp_point_to_plane(
     src,                     # (N,3) source points
     tgt,                     # (M,3) target points
@@ -140,40 +100,17 @@ def _icp_point_to_plane(
     max_corr_dist: float = 10.0,
     nn_tile: int = 2048,
     nn_method: str = "exact",
-    band_b_max: int = 0,
 ) -> ICPResult:
     N = src.shape[0]
     M = tgt.shape[0]
-    assert nn_method in ("exact", "voxel", "band"), nn_method
+    assert nn_method in ("exact", "voxel"), nn_method
     if src_valid is None:
         src_valid = jnp.ones((N,), bool)
     R0 = jnp.eye(3, dtype=jnp.float32) if R0 is None else R0
     t0 = jnp.zeros(3, jnp.float32) if t0 is None else t0
     max_d2 = max_corr_dist * max_corr_dist
 
-    if nn_method == "band":
-        from slr.registration.band import (
-            band_nn_sorted, build_band_target, round_up, _BIG, _QT)
-
-        # Build once, reuse every iteration: sort the target (with its
-        # normals riding along) and PERMANENTLY sort the source by its
-        # initial moved key — the GN accumulation is order-invariant, so
-        # nothing ever needs unsorting, and no iteration gathers.
-        bt = build_band_target(tgt, tgt_normals, tgt_valid)
-        skey = (src @ R0.T + t0) @ bt.axis
-        skey = jnp.where(src_valid, skey, jnp.float32(1e38))
-        ops = jax.lax.sort(
-            [skey] + [src[:, i] for i in range(3)]
-            + [src_valid.astype(jnp.float32)], num_keys=1)
-        Np = round_up(N, _QT)
-        pad = Np - N
-        src = jnp.stack(
-            [jnp.pad(ops[1 + i], (0, pad), constant_values=_BIG)
-             for i in range(3)], axis=1)
-        src_valid = jnp.pad(ops[4], (0, pad)) > 0.5
-        nn_b_max = (band_b_max if band_b_max > 0
-                    else int(bt.tlo.shape[0]))
-    elif nn_method == "voxel":
+    if nn_method == "voxel":
         from slr.registration.voxel import build_voxel_hash, voxel_hash_nn
 
         tv = (jnp.ones((M,), bool) if tgt_valid is None else tgt_valid)
@@ -190,21 +127,15 @@ def _icp_point_to_plane(
     def body(carry, _):
         R, t = carry
         moved = src @ R.T + t
-        if nn_method == "band":
-            # correspondence point + normal come straight out of the
-            # kernel's one-hot extraction — no tgt[idx] gather at all
-            d2, q, n, _ = band_nn_sorted(moved.T, src_valid, bt,
-                                         max_corr_dist, nn_b_max)
+        if nn_method == "voxel":
+            idx, d2 = voxel_hash_nn(moved, tgt, table, row_ids, lo,
+                                    max_corr_dist)
+            idx = jnp.maximum(idx, 0)  # -1 misses carry d2=inf (gated)
         else:
-            if nn_method == "voxel":
-                idx, d2 = voxel_hash_nn(moved, tgt, table, row_ids, lo,
-                                        max_corr_dist)
-                idx = jnp.maximum(idx, 0)  # -1 misses carry d2=inf (gated)
-            else:
-                idx, d2 = nearest_neighbors(moved, tgt, tgt_valid,
-                                            tile=nn_tile)
-            q = tgt[idx]
-            n = tgt_normals[idx]
+            idx, d2 = nearest_neighbors(moved, tgt, tgt_valid,
+                                        tile=nn_tile)
+        q = tgt[idx]
+        n = tgt_normals[idx]
         w = (src_valid & (d2 < max_d2)).astype(jnp.float32)
         # robust (Huber/IRLS) reweighting: grazing-incidence and edge
         # points carry amplified depth noise that biases the plain L2
@@ -213,7 +144,7 @@ def _icp_point_to_plane(
         # Scale estimate is 1.3 * weighted mean |e| — for Gaussian
         # residuals that equals the 70th percentile of |e| (half-normal:
         # P70 = 1.036 sigma, mean = 0.798 sigma) without the full
-        # device sort a per-iteration percentile would cost on TPU;
+        # device sort a per-iteration percentile would cost;
         # heavy outliers are already gated by max_corr_dist above.
         e_pre = jnp.sum((moved - q) * n, axis=1)
         abs_e = jnp.abs(e_pre)

@@ -1,11 +1,11 @@
-"""Tiled brute-force nearest-neighbour search on the MXU.
+"""Tiled brute-force nearest-neighbour search as matrix products.
 
 The reference's ICP uses per-query KD-tree lookups (SURVEY.md component
-15); trees are pointer-chasing and hostile to TPUs. Instead the squared
+15); trees are pointer-chasing and serial per query. Instead the squared
 distance ||q - t||^2 = |q|^2 + |t|^2 - 2 q.t is computed tile-by-tile with
 a (Q_tile x 3) @ (3 x T_tile) matmul and a running (min, argmin) carried
-over target tiles in a lax.scan — O(Q*T) FLOPs that the MXU/VPU stream at
-memory speed, exact results, fixed shapes. Masked (invalid) targets get
+over target tiles in a lax.scan — O(Q*T) FLOPs in dense matrix
+products, exact results, fixed shapes. Masked (invalid) targets get
 +inf distance.
 """
 
@@ -51,7 +51,7 @@ def nearest_neighbors(query, target, target_valid=None, tile: int = 2048):
         best_d2, best_idx = carry
         tgt, val, base = inp
         t2 = jnp.sum(tgt * tgt, axis=1)
-        # (Q, tile) distances via MXU: -2 q @ t^T
+        # (Q, tile) distances via a matmul: -2 q @ t^T
         cross = query @ tgt.T
         d2 = q2[:, None] + t2[None, :] - 2.0 * cross
         d2 = jnp.where(val[None, :], d2, jnp.inf)

@@ -87,7 +87,7 @@ def pose_graph_optimize(
         # gauge fix: anchor pose 0 (huge diagonal on its block)
         anchor = jnp.concatenate([jnp.full(6, 1e12), jnp.zeros(S * 6 - 6)])
         H = H + jnp.diag(anchor + damping)
-        # SPD (GN + anchor + damping): Cholesky beats pivoted LU on TPU
+        # SPD (GN + anchor + damping): Cholesky, no pivoting needed
         dx = -jax.scipy.linalg.cho_solve(
             jax.scipy.linalg.cho_factor(H, lower=True), g)
         dR, dt = jax.vmap(se3_exp)(dx.reshape(S, 6))

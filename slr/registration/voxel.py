@@ -92,8 +92,8 @@ def voxel_hash_nn(query, points, table, row_ids, lo, voxel_size: float,
     >= max correspondence distance). ``lo`` is the window anchor returned
     by build_voxel_hash. Returns (idx (Q,), d2 (Q,)); idx -1 when no
     candidate found (including queries outside the packing window). The
-    TPU-native KD-tree replacement of SURVEY.md section 9 (bounded
-    buckets, gather-only inner loop).
+    KD-tree replacement of SURVEY.md section 9 (bounded buckets,
+    gather-only inner loop).
     """
     Q = query.shape[0]
     vq = jnp.floor(query / voxel_size).astype(jnp.int32)

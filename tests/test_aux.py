@@ -159,9 +159,13 @@ def test_observability():
     with t.stage("mul", result_to_block=x):
         y = x * 2
     assert "mul" in t.summary()
-    r = roofline(bytes_accessed=1e9, flops=1e9, measured_ms=2.0)
+    r = roofline(bytes_accessed=1e9, flops=1e9, measured_ms=2.0,
+                 device_kind="NVIDIA H100 80GB HBM3")
     assert r["bound"] == "memory"
     assert 0 < r["sol_fraction"] <= 1.0
+    # a device without published peaks is an error, never a default
+    with pytest.raises(KeyError, match="no published peaks"):
+        roofline(bytes_accessed=1e9, flops=1e9, measured_ms=2.0)
     ms = time_fn(lambda a: a + 1, x, iters=3)
     assert ms >= 0.0
 
@@ -200,3 +204,18 @@ def test_session_checked_flag(tmp_path):
     assert int(jnp.sum(cloud.mask)) > 1000
     with pytest.raises(Exception, match="mask nearly empty"):
         sess.reconstruct(1)              # shadowed scan: located error
+
+
+def test_union_of_device_intervals():
+    from slr.observability import _union_ns
+
+    assert _union_ns([]) == 0
+    assert _union_ns([(0, 10), (5, 12), (20, 25), (21, 22)]) == 17
+
+
+def test_device_time_is_none_without_accelerator():
+    """On the CPU backend the trace has no device plane: device time is
+    'not measured', never a host number under a device name."""
+    from slr.observability import device_time_ms
+
+    assert device_time_ms(lambda a: a * 2, jnp.ones((8, 8)), n=2) is None

@@ -1,7 +1,9 @@
 """Pallas kernel tests (interpret mode on CPU, SURVEY.md section 6).
 
-The fused decode+triangulate kernel and the VMEM unwrap scan must match
-the pure-JAX reference paths to f32 tolerance on rendered scans.
+The fused decode+triangulate kernels must match the pure-JAX reference
+paths to f32 tolerance on rendered scans, and lower through the Triton
+route at the flagship width (the GPU compile itself runs in
+chip_smoke.py).
 """
 
 import jax
@@ -12,7 +14,7 @@ import pytest
 from slr.config import DecodeConfig, PatternConfig
 from slr.codec import decode_stack, spatial_quality_unwrap
 from slr.geom.triangulate import triangulate_plane
-from slr.kernels import fused_decode_triangulate, quality_unwrap_pallas
+from slr.kernels import fused_decode_triangulate
 from slr.synth import bumps_depth
 from slr.synth.render import default_rig, render_scan
 
@@ -148,21 +150,54 @@ def test_fused_kernel_uint8_frames():
     assert float(jnp.max(xerr)) < 1e-3
 
 
-def test_quality_unwrap_pallas_matches_jnp():
+def _numpy_strict_vote_unwrap(Phi, mask, iters):
+    """Independent per-pixel loop of the strict-consensus repair: a pixel
+    moves by k periods when >= 3 valid 4-neighbours vote the same
+    non-zero k = round((Phi_nb - Phi) / 2pi); the first neighbour (in
+    down, up, right, left order) reaching the highest count wins."""
+    Phi = np.asarray(Phi, np.float64).copy()
+    H, W = Phi.shape
+    for _ in range(iters):
+        new = Phi.copy()
+        for y in range(H):
+            for x in range(W):
+                if not mask[y, x]:
+                    continue
+                votes = []
+                for dy, dx in ((-1, 0), (1, 0), (0, -1), (0, 1)):
+                    yy, xx = y + dy, x + dx
+                    if 0 <= yy < H and 0 <= xx < W and mask[yy, xx]:
+                        votes.append(np.round((Phi[yy, xx] - Phi[y, x])
+                                              / (2 * np.pi)))
+                best_k, best_n = 0.0, 0
+                for k in votes:
+                    n = sum(v == k for v in votes)
+                    if k != 0 and n > best_n:
+                        best_k, best_n = k, n
+                if best_n >= 3:
+                    new[y, x] = Phi[y, x] + 2 * np.pi * best_k
+        Phi = new
+    return Phi
+
+
+def test_spatial_quality_unwrap_matches_numpy_loop():
+    """The plain spatial repair (the route reconstruct_dense takes when
+    spatial_iters > 0) against an independent per-pixel loop."""
     rng = np.random.default_rng(0)
-    H, W = 64, 96
-    Phi = jnp.asarray(
-        np.linspace(0, 30, W)[None, :] + 0.1 * rng.normal(size=(H, W)),
-        jnp.float32,
-    )
+    H, W = 24, 40
+    Phi = np.linspace(0, 30, W)[None, :] + 0.1 * rng.normal(size=(H, W))
     bad = np.zeros((H, W), bool)
-    bad[rng.integers(1, H - 1, 30), rng.integers(1, W - 1, 30)] = True
-    q = jnp.asarray(np.where(bad, 0.05, 1.0), jnp.float32)
-    Phi_n = jnp.where(jnp.asarray(bad), Phi + 2 * jnp.pi * 3, Phi)
-    mask = jnp.ones((H, W), bool)
-    a = spatial_quality_unwrap(Phi_n, q, mask, iters=6)
-    b = quality_unwrap_pallas(Phi_n, q, mask, iters=6)
-    np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-5)
+    bad[rng.integers(0, H, 25), rng.integers(0, W, 25)] = True
+    Phi_n = np.where(bad, Phi + 2 * np.pi * 3, Phi).astype(np.float32)
+    mask = rng.random((H, W)) > 0.05
+    q = np.where(bad, 0.05, 1.0).astype(np.float32)
+    out = spatial_quality_unwrap(jnp.asarray(Phi_n), jnp.asarray(q),
+                                 jnp.asarray(mask), iters=3)
+    ref = _numpy_strict_vote_unwrap(Phi_n, mask, iters=3)
+    np.testing.assert_allclose(np.asarray(out), ref, atol=1e-4)
+    # the repair actually fixed most planted order errors
+    fixed = np.abs(np.asarray(out) - Phi) < 0.5
+    assert fixed[bad & mask].mean() > 0.7
 
 
 def test_fused_kernel_midpoint_rowcol():
@@ -304,11 +339,10 @@ def test_fused_kernel_multifreq():
 
 
 def test_crossing_interp_matches_brute_force():
-    """The monotone-crossing MXU primitive (two-camera merge core): both
-    the Pallas kernel and the one-hot reference must reproduce a brute-
-    force per-row crossing search exactly, including masked gaps and
-    occlusion jumps (VERDICT r3 next #1)."""
-    from slr.kernels.crossing import crossing_interp
+    """The monotone-crossing primitive (two-camera merge core) must
+    reproduce a brute-force per-row crossing search exactly, including
+    masked gaps and occlusion jumps."""
+    from slr.pipeline.crossing import crossing_interp
 
     rng = np.random.default_rng(0)
     R, U, K = 16, 256, 128
@@ -323,14 +357,9 @@ def test_crossing_interp_matches_brute_force():
     chan_q = rng.uniform(0.5, 1.0, (R, U)).astype(np.float32)
     channels = jnp.stack([jnp.asarray(chan_u), jnp.asarray(chan_q)])
 
-    outs = {}
-    for use_kernel in (False, True):
-        cnt, vals = crossing_interp(
-            jnp.asarray(code), jnp.asarray(valid), channels, K,
-            interp=(True, False), use_kernel=use_kernel)
-        outs[use_kernel] = (np.asarray(cnt), np.asarray(vals))
-
-    cnt, vals = outs[True]
+    cnt, vals = crossing_interp(jnp.asarray(code), jnp.asarray(valid),
+                                channels, K, interp=(True, False))
+    cnt, vals = np.asarray(cnt), np.asarray(vals)
     n_checked = 0
     for r in range(0, R, 3):
         for k in range(K):
@@ -348,49 +377,6 @@ def test_crossing_interp_matches_brute_force():
                 assert abs(np.mean(xs) - vals[0, r, k]) < 1e-3
                 n_checked += 1
     assert n_checked > 200
-    # kernel vs reference agree to f32 roundoff
-    np.testing.assert_allclose(outs[True][1], outs[False][1], atol=1e-4)
-    np.testing.assert_array_equal(outs[True][0], outs[False][0])
-
-
-@pytest.mark.slow
-def test_wavefront_pallas_matches_pure_jax():
-    """VMEM wavefront scan vs the associative-scan oracle
-    (slr.codec.unwrap.quality_guided_unwrap) — same monoid, 3-field
-    compression, must agree to fp roundoff (VERDICT r3 next #2)."""
-    from slr.codec.unwrap import quality_guided_unwrap, quality_guided_repair
-    from slr.kernels.wavefront import (
-        wavefront_unwrap_pallas, wavefront_repair_pallas,
-    )
-
-    rng = np.random.default_rng(3)
-    H, W = 96, 160
-    Phi = np.linspace(0, 40, W)[None, :] + 0.1 * rng.normal(size=(H, W))
-    bad = np.zeros((H, W), bool)
-    bad[rng.integers(1, H - 1, 60), rng.integers(1, W - 1, 60)] = True
-    bad[30:36, 40:48] = True                # multi-pixel blob
-    q = jnp.asarray(np.where(bad, 0.05, 1.0).astype(np.float32))
-    Phi_n = jnp.asarray(
-        np.where(bad, Phi + 2 * np.pi * 3, Phi).astype(np.float32))
-    mask = jnp.ones((H, W), bool)
-
-    ref, reached_ref = quality_guided_unwrap(
-        jnp.mod(Phi_n, 2 * np.pi), q, mask, levels=4, rounds_per_level=2)
-    out, reached = wavefront_unwrap_pallas(
-        jnp.mod(Phi_n, 2 * np.pi), q, mask, levels=4, rounds_per_level=2)
-    assert (np.asarray(reached) == np.asarray(reached_ref)).all()
-    both = np.asarray(reached) & np.asarray(reached_ref)
-    assert np.abs(np.asarray(out) - np.asarray(ref))[both].max() < 1e-4
-
-    ref2 = quality_guided_repair(Phi_n, q, mask, levels=4,
-                                 rounds_per_level=2)
-    out2 = wavefront_repair_pallas(Phi_n, q, mask, levels=4,
-                                   rounds_per_level=2)
-    assert np.abs(np.asarray(out2) - np.asarray(ref2)).max() < 1e-4
-
-    # the light repair defaults (8 directional passes) still fix the blob
-    out3 = wavefront_repair_pallas(Phi_n, q, mask)
-    assert np.abs(np.asarray(out3) - Phi).max() < 1e-3
 
 
 @pytest.mark.slow
@@ -505,3 +491,58 @@ def test_hdr_phase_fusion_beats_selection():
     # overall never worse, coverage unchanged
     assert rms_sum <= rms_sel * 1.02, (rms_sum, rms_sel)
     assert n_sum >= 0.98 * n_sel, (n_sum, n_sel)
+
+
+@pytest.mark.parametrize("backend,expected", [
+    ("cpu", True), ("gpu", False), ("rocm", None)])
+def test_use_interpret_by_backend(monkeypatch, backend, expected):
+    """Interpret on the CPU, compiled on the GPU, and no silent
+    interpretation anywhere else."""
+    from slr.kernels import common
+
+    monkeypatch.setattr(common.jax, "default_backend", lambda: backend)
+    if expected is None:
+        with pytest.raises(RuntimeError, match="no Pallas route"):
+            common.use_interpret()
+    else:
+        assert common.use_interpret() is expected
+
+
+_LOWER_CASES = {
+    "flagship": dict(gray_bits=7, phase_steps=4),
+    "midpoint": dict(gray_bits=7, row_gray_bits=6, phase_steps=4,
+                     row_phase_steps=4),
+    "gray_only": dict(gray_bits=8, phase_steps=0),
+    "multifreq": dict(coding="multifreq", phase_steps=4, mf_levels=3,
+                      mf_ratio=6.0),
+}
+
+
+@pytest.mark.parametrize("case,dtype", [
+    ("flagship", "float32"), ("flagship", "uint8"), ("midpoint", "uint8"),
+    ("gray_only", "float32"), ("multifreq", "float32"), ("hdr", "uint8")])
+def test_fused_kernel_lowers_for_triton(monkeypatch, case, dtype):
+    """At the flagship width (1280x1024) every kernel configuration
+    lowers through the Triton route (power-of-two tiles, supported
+    primitives). Lowering only: PTX compilation needs the GPU."""
+    from slr.kernels import fused_scan
+
+    monkeypatch.setattr(fused_scan, "use_interpret", lambda: False)
+    H, W = 1024, 1280
+    cam, proj = default_rig(cam_w=W, cam_h=H)
+    kw = _LOWER_CASES.get(case, _LOWER_CASES["flagship"])
+    cfg = PatternConfig(proj_width=1024, proj_height=768, **kw)
+    dec = DecodeConfig()
+    if case == "hdr":
+        x = jax.ShapeDtypeStruct((3, cfg.num_frames, H, W), dtype)
+        fn = fused_scan.fused_decode_triangulate_hdr
+    else:
+        x = jax.ShapeDtypeStruct((cfg.num_frames, H, W), dtype)
+        fn = fused_scan.fused_decode_triangulate
+    fn.clear_cache()
+    try:
+        text = jax.jit(lambda f: fn(f, cam, proj, cfg, dec)).trace(
+            x).lower(lowering_platforms=("cuda",)).as_text()
+    finally:
+        fn.clear_cache()
+    assert "xla.gpu.triton" in text          # the Triton custom call

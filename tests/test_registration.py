@@ -386,84 +386,60 @@ def test_icp_voxel_nn_matches_exact_64k():
     assert float(jnp.abs(res_vox.t - res_exact.t).max()) < 0.3
 
 
-def test_band_nn_vs_scipy():
-    """Sorted-band MXU NN (VERDICT r4 next #3) is exact within
-    max_corr_dist against scipy's cKDTree and flags misses with -1."""
+def _voxel_nn(qry, tgt, valid, vs, cap=32):
+    from slr.registration.voxel import build_voxel_hash, voxel_hash_nn
+
+    table, row_ids, lo = build_voxel_hash(
+        jnp.asarray(tgt), jnp.asarray(valid), vs, bucket_cap=cap)
+    idx, d2 = voxel_hash_nn(jnp.asarray(qry), jnp.asarray(tgt), table,
+                            row_ids, lo, vs, bucket_cap=cap)
+    return np.asarray(idx), np.asarray(d2)
+
+
+@pytest.mark.parametrize("case", ["small", "large", "valid_mask",
+                                  "duplicates"])
+def test_voxel_nn_vs_ckdtree(case):
+    """The large-cloud ICP route (voxel hash, "auto" above ~24k^2 pairs)
+    is exact against scipy's cKDTree wherever the true NN lies within
+    one voxel edge, honours the target valid mask, and resolves
+    duplicate targets to one of the tied indices."""
     from scipy.spatial import cKDTree
-    from slr.registration import band_nearest_neighbors
 
-    rng = np.random.default_rng(2)
-    tgt = rng.uniform(-80, 80, (4000, 3)).astype(np.float32)
-    tgt[:, 2] *= 0.2                       # anisotropic: axis choice matters
-    qry = rng.uniform(-90, 90, (1500, 3)).astype(np.float32)
-    qry[:, 2] *= 0.2
-    r = 12.0
-    idx, d2 = band_nearest_neighbors(jnp.asarray(qry), jnp.asarray(tgt),
-                                     max_corr_dist=r, qt=128, tt=128)
-    tree = cKDTree(tgt)
-    d_ref, i_ref = tree.query(qry)
-    within = d_ref <= r
-    assert within.sum() > 1000             # scene sanity
-    np.testing.assert_array_equal(np.asarray(idx)[within], i_ref[within])
-    np.testing.assert_allclose(np.sqrt(np.asarray(d2)[within]),
-                               d_ref[within], rtol=1e-3, atol=5e-3)
-    assert np.all(np.asarray(idx)[~within] == -1)
-    assert np.all(np.isinf(np.asarray(d2)[~within]))
-
-
-def test_band_nn_respects_valid_mask():
-    from slr.registration import band_nearest_neighbors
-
-    tgt = jnp.asarray([[0.0, 0, 0], [3.0, 0, 0], [50.0, 0, 0]], jnp.float32)
-    qry = jnp.asarray([[1.0, 0, 0]], jnp.float32)
-    valid = jnp.asarray([False, True, True])
-    idx, d2 = band_nearest_neighbors(qry, tgt, target_valid=valid,
-                                     max_corr_dist=10.0, qt=128, tt=128)
-    assert int(idx[0]) == 1
-    assert abs(float(d2[0]) - 4.0) < 1e-3
+    rng = np.random.default_rng(["small", "large", "valid_mask",
+                                 "duplicates"].index(case))
+    n = {"small": 500, "large": 20000}.get(case, 4000)
+    tgt = rng.uniform(-80, 80, (n, 3)).astype(np.float32)
+    valid = np.ones(n, bool)
+    if case == "valid_mask":
+        valid = rng.random(n) > 0.5
+    if case == "duplicates":
+        tgt[n // 2:] = tgt[:n - n // 2]          # every point twice
+    keep = np.nonzero(valid)[0]
+    qry = (tgt[rng.choice(keep, 1500)]
+           + rng.normal(0, 2.0, (1500, 3))).astype(np.float32)
+    vs = 6.0
+    idx, d2 = _voxel_nn(qry, tgt, valid, vs)
+    d_ref, i_ref = cKDTree(tgt[keep]).query(qry)
+    i_ref = keep[i_ref]
+    within = d_ref <= vs
+    assert within.mean() > 0.9                   # scene sanity
+    np.testing.assert_allclose(np.sqrt(d2[within]), d_ref[within],
+                               rtol=1e-4, atol=1e-4)
+    assert valid[idx[within]].all()
+    same = np.all(tgt[idx[within]] == tgt[i_ref[within]], axis=1)
+    assert same.mean() > 0.999, same.mean()
 
 
-def test_icp_band_nn_matches_exact():
-    """The band NN route inside ICP (gather-free correspondence
-    extraction) recovers the same pose as the exact-NN path."""
-    src = _bumpy_cloud(8192, seed=7)
-    rv = jnp.asarray([0.01, -0.02, 0.015], jnp.float32)
-    R_true = so3_exp(rv)
-    t_true = jnp.asarray([3.0, -2.0, 4.0], jnp.float32)
-    tgt = src @ R_true.T + t_true
-    gx = (20 * np.cos(np.asarray(src[:, 0]) / 25.0) / 25.0
-          * np.cos(np.asarray(src[:, 1]) / 30.0))
-    gy = (-20 * np.sin(np.asarray(src[:, 0]) / 25.0)
-          * np.sin(np.asarray(src[:, 1]) / 30.0) / 30.0
-          + 8 * np.cos(np.asarray(src[:, 1]) / 12.0) / 12.0)
-    n0 = np.column_stack([-gx, -gy, np.ones_like(gx)])
-    n0 /= np.linalg.norm(n0, axis=1, keepdims=True)
-    n_tgt = jnp.asarray(n0, jnp.float32) @ R_true.T
+@pytest.mark.parametrize("backend", ["cpu", "gpu"])
+def test_icp_auto_nn_rule_is_backend_free(monkeypatch, backend):
+    """"auto" resolves from the pair count alone: exact up to 24k^2
+    source*target pairs, voxel hash above — the same rule on every
+    backend."""
+    import jax as _jax
+    from slr.registration import icp
 
-    res = icp_point_to_plane(src, tgt, n_tgt, iters=15, max_corr_dist=20.0,
-                             nn_method="band")
-    np.testing.assert_allclose(np.asarray(res.R), np.asarray(R_true),
-                               atol=2e-3)
-    np.testing.assert_allclose(np.asarray(res.t), np.asarray(t_true),
-                               atol=0.5)
-    assert float(res.rms) < 0.2
-
-
-def test_band_nn_duplicate_targets_tie_break():
-    """Exact score ties (duplicate target points, common after merging
-    scans) must resolve to ONE valid index — the kernel tie-breaks to
-    the lowest sorted lane instead of summing the tied payloads (which
-    decoded to an unrelated averaged index)."""
-    from slr.registration import band_nearest_neighbors
-
-    rng = np.random.default_rng(0)
-    tgt = np.array([[0.0, 0, 0], [5, 0, 0], [5, 0, 0], [9, 0, 0]],
-                   np.float32)
-    tgt = np.concatenate(
-        [tgt, rng.uniform(20, 90, (200, 3)).astype(np.float32)])
-    qry = np.array([[5.1, 0, 0], [0.2, 0, 0]], np.float32)
-    idx, d2 = band_nearest_neighbors(jnp.asarray(qry), jnp.asarray(tgt),
-                                     max_corr_dist=10.0, qt=128, tt=128)
-    assert int(idx[0]) in (1, 2)
-    assert abs(float(d2[0]) - 0.01) < 1e-3
-    assert int(idx[1]) == 0
+    monkeypatch.setattr(_jax, "default_backend", lambda: backend)
+    assert icp._resolve_nn_method("auto", 4096, 4096) == "exact"
+    assert icp._resolve_nn_method("auto", 24_000, 24_000) == "exact"
+    assert icp._resolve_nn_method("auto", 65_536, 65_536) == "voxel"
+    assert icp._resolve_nn_method("exact", 65_536, 65_536) == "exact"
