@@ -28,6 +28,7 @@ from __future__ import annotations
 import argparse
 import json
 import tempfile
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -141,7 +142,10 @@ def phase_main_path(workdir, cam_w, cam_h, proj_w, proj_h, gray_bits,
                                          truth.points_true, truth.mask_true)
     print(f"  calibration joint RMS {out['calib_rms_px']:.4f} px; scan 0 "
           f"with the calibrated rig: RMS {out['scan_rms_calibrated_mm']:.4f}"
-          " mm vs ground truth (calibration error included, not gated)")
+          " mm vs ground truth (calibration bias included; it predates "
+          "the GPU port, so it is not gated; PERF.md)")
+    _check(np.isfinite(out["scan_rms_calibrated_mm"]),
+           "calibrated scan is not finite")
     # the repo's single-scan gate (bench.py): the same frames through a
     # Session that holds the true rig
     chk = Session(workdir / "true_rig", sess.config)
@@ -302,7 +306,7 @@ def phase_timing(cam_w, cam_h, proj_w, proj_h, gray_bits,
              "plain_device_ms": busy(plain, *args)}
         dev = ("not measured" if r["kernel_device_ms"] is None else
                f"{r['kernel_device_ms']:.4f} vs {r['plain_device_ms']:.4f}")
-        print(f"  {label}: wall kernel {r['kernel_ms']:.4f} ms, plain "
+        print(f"  {label}: wall {r['kernel_ms']:.4f} vs "
               f"{r['plain_ms']:.4f} ms; device busy {dev} ms")
         res[label] = r
 
@@ -314,9 +318,15 @@ def phase_timing(cam_w, cam_h, proj_w, proj_h, gray_bits,
              dec, rec)
     _, bracket = _hdr_bracket(cam, proj, cfg, cam_h, cam_w)
     bracket = jax.block_until_ready(bracket)
-    pair("reconstruct_scan_hdr vs reconstruct_hdr_plain, uint8 E=3",
-         reconstruct_scan_hdr, reconstruct_hdr_plain, bracket, cam, proj,
+    # the same work on both sides: the kernel's best-exposure pick against
+    # the plain route; then the production phase fusion against that pick
+    select = partial(reconstruct_scan_hdr, fuse="select")
+    pair("reconstruct_scan_hdr(fuse='select') vs reconstruct_hdr_plain, "
+         "uint8 E=3", select, reconstruct_hdr_plain, bracket, cam, proj,
          cfg, dec, rec)
+    pair("reconstruct_scan_hdr fuse='sum' (Session default) vs "
+         "fuse='select', uint8 E=3", reconstruct_scan_hdr, select, bracket,
+         cam, proj, cfg, dec, rec)
     res["two_camera"] = _time_two_camera(*stereo_wh, iters=iters)
     return res
 
@@ -489,7 +499,7 @@ def main(argv=None) -> None:
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": dev.platform, "kind": dev.device_kind,
-        "count": len(jax.devices())}}))
+        "count": args.cards}}))
 
 
 if __name__ == "__main__":

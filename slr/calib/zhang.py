@@ -43,24 +43,21 @@ def _v_ij(H, i, j):
     )
 
 
-def zhang_init_intrinsics(Hs, img_points=None):
+def zhang_init_intrinsics(Hs, img_points):
     """Closed-form K from stacked homographies (V,3,3), V >= 3.
 
-    ``img_points`` (any shape (..., 2), pixels) sets a similarity that
-    brings the image coordinates to unit scale before the solve, and K is
-    mapped back after it. In pixel units the entries of b = K^-T K^-1
-    span ~6 orders of magnitude and the f32 null vector is noise on some
-    backends (the GPU's symmetric eigensolver); normalized, it is well
-    conditioned. The null vector comes from an SVD of the constraint
-    matrix itself, not an eigh of its square.
+    ``img_points`` (any shape (..., 2), pixels: the corners the
+    homographies were fitted to) set a similarity that brings the image
+    coordinates to unit scale before the solve, and K is mapped back
+    after it. In pixel units the entries of b = K^-T K^-1 span ~6 orders
+    of magnitude and the f32 null vector is noise on some backends (the
+    GPU's symmetric eigensolver); normalized, it is well conditioned. The
+    null vector comes from an SVD of the constraint matrix itself, not an
+    eigh of its square.
     """
-    if img_points is None:
-        c, s = jnp.zeros(2, jnp.float32), jnp.float32(1.0)
-    else:
-        pts = img_points.reshape(-1, 2).astype(jnp.float32)
-        c = jnp.mean(pts, axis=0)
-        s = jnp.sqrt(2.0) / (jnp.mean(jnp.linalg.norm(pts - c, axis=1))
-                             + 1e-12)
+    pts = img_points.reshape(-1, 2).astype(jnp.float32)
+    c = jnp.mean(pts, axis=0)
+    s = jnp.sqrt(2.0) / (jnp.mean(jnp.linalg.norm(pts - c, axis=1)) + 1e-12)
     T = jnp.array([[s, 0.0, -s * c[0]], [0.0, s, -s * c[1]],
                    [0.0, 0.0, 1.0]])
     rows = []

@@ -20,8 +20,10 @@ Two triangulation modes (the "fused midpoint/DLT kernel" of [B:5]):
 Layout for the Triton lowering: a 2-D parallel grid of (BH, BW) pixel
 tiles with nothing carried between programs; every load and store is one
 power-of-two (BH, BW) tile (the frame axis is indexed one frame at a
-time), and the parameter row is read as scalars. Off the GPU the same
-kernel runs in Pallas interpret mode (slr.kernels.common.use_interpret).
+time), and the parameter row is read as scalars. When H or W is not a
+whole number of tiles, the edge programs mask their loads and stores
+instead of the stack being padded. Off the GPU the same kernel runs in
+Pallas interpret mode (slr.kernels.common.use_interpret).
 
 Assumes the standard scan frame: camera at the world origin with R = I.
 Parity with the pure-JAX path (slr.codec.decode_stack +
@@ -41,7 +43,7 @@ from jax.experimental.pallas import triton as pltriton
 
 from slr.config import DecodeConfig, PatternConfig
 from slr.geom.camera import Camera
-from slr.kernels.common import round_up, use_interpret
+from slr.kernels.common import use_interpret
 
 TWO_PI = 2.0 * math.pi
 
@@ -64,6 +66,33 @@ def _round(x):
     # round-half-up: the Triton lowering has no round primitive, and the
     # arguments here are near-integers (fringe orders), never near .5
     return jnp.floor(x + 0.5)
+
+
+def _inside(shape, hw):
+    """(BH, BW) mask of this program's pixels that lie inside the (H, W)
+    image, or None when the grid tiles the image exactly."""
+    if hw is None:
+        return None
+    bh, bw = shape
+    rows = jax.lax.broadcasted_iota(jnp.int32, (bh, bw), 0)
+    cols = jax.lax.broadcasted_iota(jnp.int32, (bh, bw), 1)
+    return ((rows + pl.program_id(0) * bh < hw[0])
+            & (cols + pl.program_id(1) * bw < hw[1]))
+
+
+def _load(ref, idx, inside):
+    """One (BH, BW) tile of ``ref[idx]``; edge programs load only the
+    pixels inside the image (the rest are never stored)."""
+    if inside is None:
+        return ref[idx]
+    return pltriton.load(ref.at[idx], mask=inside)
+
+
+def _store(ref, idx, val, inside):
+    if inside is None:
+        ref[idx] = val
+    else:
+        pltriton.store(ref.at[idx], val, mask=inside)
 
 
 def _undistort(xd, yd, k1, k2, p1, p2, k3, iters):
@@ -110,22 +139,24 @@ def _phase_sums(ld, base: int, steps: int):
 def _kernel(params_ref, f_ref, pts_ref, mask_ref, qual_ref, xp_ref,
             yp_ref, *, bits: int, row_bits: int, steps: int,
             row_steps: int, undistort_iters: int, scale: float,
-            tau_black, tau_white, tau_mod, mf_pitches: tuple = ()):
+            tau_black, tau_white, tau_mod, mf_pitches: tuple = (),
+            hw=None):
     # Frame loaders. Integer (8-bit camera) stacks read 1 byte/px and
     # every comparison (Gray bits, contrast/certainty thresholds) stays
     # in the integer domain; only the N phase frames are converted to
     # f32, in RAW units (atan2 ratios are scale-invariant and the
     # modulation output is rescaled once at the end). The tau_*
     # thresholds arrive as compile-time constants already in raw units.
+    inside = _inside(f_ref.shape[-2:], hw)
     if scale != 1.0:
         def raw(i):
-            return f_ref[i].astype(jnp.int32)
+            return _load(f_ref, i, inside).astype(jnp.int32)
 
         def rawf(i):
-            return f_ref[i].astype(jnp.int32).astype(jnp.float32)
+            return raw(i).astype(jnp.float32)
     else:
         def raw(i):
-            return f_ref[i]
+            return _load(f_ref, i, inside)
 
         rawf = raw
     p = params_ref
@@ -168,13 +199,13 @@ def _kernel(params_ref, f_ref, pts_ref, mask_ref, qual_ref, xp_ref,
             pitch=p[33], row_pitch=p[34])
 
     _triangulate_write(p, x_p, y_p, mask, modulation,
-                       pts_ref, mask_ref, qual_ref, xp_ref, yp_ref,
+                       pts_ref, mask_ref, qual_ref, xp_ref, yp_ref, inside,
                        row_bits=row_bits, undistort_iters=undistort_iters)
 
 
 def _triangulate_write(p, x_p, y_p, mask, modulation,
-                       pts_ref, mask_ref, qual_ref, xp_ref, yp_ref, *,
-                       row_bits: int, undistort_iters: int):
+                       pts_ref, mask_ref, qual_ref, xp_ref, yp_ref, inside,
+                       *, row_bits: int, undistort_iters: int):
     """Camera-ray construction + plane/midpoint triangulation + output
     writes — the tail shared by the single-exposure and HDR kernels."""
     fx, fy, cx, cy = p[3], p[4], p[5], p[6]
@@ -236,14 +267,14 @@ def _triangulate_write(p, x_p, y_p, mask, modulation,
     mask = mask & (lam > zmin) & (lam < zmax)
     fmask = mask.astype(jnp.float32)
 
-    pts_ref[0] = Xx * fmask
-    pts_ref[1] = Xy * fmask
-    pts_ref[2] = Xz * fmask
-    mask_ref[...] = fmask
-    qual_ref[...] = modulation.astype(jnp.float32)
-    xp_ref[...] = x_p
+    _store(pts_ref, 0, Xx * fmask, inside)
+    _store(pts_ref, 1, Xy * fmask, inside)
+    _store(pts_ref, 2, Xz * fmask, inside)
+    _store(mask_ref, ..., fmask, inside)
+    _store(qual_ref, ..., modulation.astype(jnp.float32), inside)
+    _store(xp_ref, ..., x_p, inside)
     # decoded projector row, 0 if not coded
-    yp_ref[...] = jnp.zeros_like(x_p) if y_p is None else y_p
+    _store(yp_ref, ..., jnp.zeros_like(x_p) if y_p is None else y_p, inside)
 
 
 def _gray_phase_decode(raw, rawf, certain, contrast, *, bits, row_bits,
@@ -365,19 +396,17 @@ def _raw_thresholds(dtype, bit_depth, dec):
 
 
 def _call(kern, params, frames, H, W, flops_per_px, in_bytes_per_px):
-    """pallas_call over a BLOCK tile grid of the (..., H, W) input
-    (padded to whole tiles), Triton route; crops the outputs to (H, W)."""
+    """pallas_call over a BLOCK tile grid of the (..., H, W) input, Triton
+    route. A grid that overhangs the image masks its edge tiles."""
     bh, bw = BLOCK
-    Hp, Wp = round_up(H, bh), round_up(W, bw)
-    if (Hp, Wp) != (H, W):
-        pad = [(0, 0)] * (frames.ndim - 2) + [(0, Hp - H), (0, Wp - W)]
-        frames = jnp.pad(frames, pad)
+    exact = H % bh == 0 and W % bw == 0
+    kern = partial(kern, hw=None if exact else (H, W))
     lead = frames.shape[:-2]
     nl = len(lead)
     tile = pl.BlockSpec((bh, bw), lambda i, j: (i, j))
     pts, mask, qual, xp, yp = pl.pallas_call(
         kern,
-        grid=(Hp // bh, Wp // bw),
+        grid=(pl.cdiv(H, bh), pl.cdiv(W, bw)),
         in_specs=[
             pl.BlockSpec((_N_PARAMS,), lambda i, j: (0,)),
             pl.BlockSpec((*lead, bh, bw),
@@ -386,22 +415,20 @@ def _call(kern, params, frames, H, W, flops_per_px, in_bytes_per_px):
         out_specs=(pl.BlockSpec((3, bh, bw), lambda i, j: (0, i, j)),
                    tile, tile, tile, tile),
         out_shape=(
-            jax.ShapeDtypeStruct((3, Hp, Wp), jnp.float32),
-            *[jax.ShapeDtypeStruct((Hp, Wp), jnp.float32)] * 4,
+            jax.ShapeDtypeStruct((3, H, W), jnp.float32),
+            *[jax.ShapeDtypeStruct((H, W), jnp.float32)] * 4,
         ),
         cost_estimate=pl.CostEstimate(
-            flops=flops_per_px * Hp * Wp,
-            bytes_accessed=(in_bytes_per_px + 7 * 4) * Hp * Wp,
-            transcendentals=3 * Hp * Wp,
+            flops=flops_per_px * H * W,
+            bytes_accessed=(in_bytes_per_px + 7 * 4) * H * W,
+            transcendentals=3 * H * W,
         ),
         backend="triton",
         compiler_params=pltriton.CompilerParams(num_warps=_NUM_WARPS),
         interpret=use_interpret(),
         name="fused_decode_triangulate",
     )(params, frames)
-    return FusedScanOut(points=pts[:, :H, :W], mask=mask[:H, :W],
-                        quality=qual[:H, :W], x_p=xp[:H, :W],
-                        y_p=yp[:H, :W])
+    return FusedScanOut(points=pts, mask=mask, quality=qual, x_p=xp, y_p=yp)
 
 
 @partial(jax.jit, static_argnames=("cfg", "dec", "z_bounds",
@@ -465,7 +492,8 @@ def fused_decode_triangulate(
 def _hdr_kernel(params_ref, f_ref, pts_ref, mask_ref, qual_ref, xp_ref,
                 yp_ref, *, E: int, bits: int, row_bits: int, steps: int,
                 row_steps: int, undistort_iters: int, scale: float,
-                tau_black, tau_white, tau_mod, tau_sat, fuse: str = "sum"):
+                tau_black, tau_white, tau_mod, tau_sat, fuse: str = "sum",
+                hw=None):
     """Exposure-bracketed fused decode: each program reads its tile of
     the (E, F) bracket once; per-exposure phase modulation is computed
     in registers, and the standard Gray+phase decode+triangulate runs a
@@ -483,15 +511,16 @@ def _hdr_kernel(params_ref, f_ref, pts_ref, mask_ref, qual_ref, xp_ref,
     weighting for equal additive sensor noise per capture, so dark
     pixels seen by several exposures get strictly more signal than any
     single pick."""
+    inside = _inside(f_ref.shape[-2:], hw)
     if scale != 1.0:
         def raw_e(e, i):
-            return f_ref[e, i].astype(jnp.int32)
+            return _load(f_ref, (e, i), inside).astype(jnp.int32)
 
         def rawf_e(e, i):
-            return f_ref[e, i].astype(jnp.int32).astype(jnp.float32)
+            return raw_e(e, i).astype(jnp.float32)
     else:
         def raw_e(e, i):
-            return f_ref[e, i]
+            return _load(f_ref, (e, i), inside)
 
         rawf_e = raw_e
     p = params_ref
@@ -564,7 +593,7 @@ def _hdr_kernel(params_ref, f_ref, pts_ref, mask_ref, qual_ref, xp_ref,
         SC_row=(combine(Srs), combine(Crs)) if row_steps else None)
 
     _triangulate_write(p, x_p, y_p, mask, modulation,
-                       pts_ref, mask_ref, qual_ref, xp_ref, yp_ref,
+                       pts_ref, mask_ref, qual_ref, xp_ref, yp_ref, inside,
                        row_bits=row_bits, undistort_iters=undistort_iters)
 
 

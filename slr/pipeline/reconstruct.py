@@ -68,7 +68,8 @@ def reconstruct_scan(
     )
 
 
-@partial(jax.jit, static_argnames=("cfg", "dec", "rec", "saturation"))
+@partial(jax.jit, static_argnames=("cfg", "dec", "rec", "saturation",
+                                   "fuse"))
 def reconstruct_scan_hdr(
     stacks,
     cam: Camera,
@@ -77,6 +78,7 @@ def reconstruct_scan_hdr(
     dec: DecodeConfig = DecodeConfig(),
     rec: ReconstructConfig = ReconstructConfig(),
     saturation: float = 0.98,
+    fuse: str = "sum",
 ) -> ScanCloud:
     """Exposure-bracketed reconstruction: (E, F, H, W) stacks fused by
     per-pixel best-valid-modulation selection, then triangulated.
@@ -85,14 +87,16 @@ def reconstruct_scan_hdr(
     Production route (gray_phase + inverse codes): ONE Pallas kernel
     reads all E stacks, selects per pixel in registers and decodes once
     (fused_decode_triangulate_hdr) instead of E dense pure-JAX decodes
-    plus a gather. Other codings take slr.codec.decode_multi_exposure."""
+    plus a gather. ``fuse`` is the kernel's phase rule ("sum" fuses the
+    usable exposures, "select" takes the best one as the plain route
+    does). Other codings take slr.codec.decode_multi_exposure."""
     if (cfg.coding == "gray_phase" and cfg.use_inverse
             and cfg.phase_steps > 0):
         from slr.kernels.fused_scan import fused_decode_triangulate_hdr
 
         out = fused_decode_triangulate_hdr(
             stacks, cam, proj, cfg, dec, saturation=saturation,
-            z_bounds=(rec.min_depth, rec.max_depth))
+            z_bounds=(rec.min_depth, rec.max_depth), fuse=fuse)
         whites = jax.vmap(_white_color)(stacks)       # (E, H, W)
         colors = jnp.max(jnp.where(whites < saturation, whites, 0.0),
                          axis=0)

@@ -70,7 +70,8 @@ def test_fused_kernel_accuracy_vs_ground_truth():
 
 
 def test_fused_kernel_nonaligned_sizes():
-    """H, W not multiples of the tile: padding path must stay correct."""
+    """H, W not multiples of the tile: the masked edge tiles must stay
+    correct."""
     cam, proj = default_rig(cam_w=300, cam_h=215, proj_w=256, proj_h=192,
                             baseline=150.0, toe_in_deg=14.0)
     cfg = PatternConfig(proj_width=256, proj_height=192, gray_bits=6,
@@ -85,6 +86,43 @@ def test_fused_kernel_nonaligned_sizes():
     err = jnp.where(valid, jnp.linalg.norm(pts - scan.points_true, axis=-1), 0.0)
     n = jnp.sum(valid)
     assert float(jnp.sqrt(jnp.sum(err * err) / n)) < 0.5
+
+
+def test_hdr_fused_kernel_nonaligned_select_parity():
+    """The HDR kernel at a size that is not whole tiles (the edge
+    programs mask their loads and stores): fuse="select" against the
+    plain bracket decode, and the same points as the kernel on the
+    padded-out bracket, cropped."""
+    from slr.codec import decode_multi_exposure
+    from slr.kernels.fused_scan import fused_decode_triangulate_hdr
+    from slr.synth.render import quantize_frames
+
+    H, W = 100, 150
+    cam, proj = default_rig(cam_w=W, cam_h=H, proj_w=256, proj_h=192,
+                            baseline=150.0, toe_in_deg=14.0)
+    cfg = PatternConfig(proj_width=256, proj_height=192, gray_bits=5,
+                        phase_steps=4)
+    scan = render_scan(cam, proj, bumps_depth(H, W, base=480.0, amp=20.0),
+                       cfg, noise_std=0.003, key=jax.random.PRNGKey(4))
+    bracket = quantize_frames(jnp.stack(
+        [jnp.clip(scan.frames * g, 0.0, 1.0) for g in (0.5, 1.5)]))
+    dec = DecodeConfig()
+    out = fused_decode_triangulate_hdr(bracket, cam, proj, cfg, dec,
+                                       fuse="select")
+    assert out.points.shape == (3, H, W) and out.mask.shape == (H, W)
+    ref = decode_multi_exposure(bracket, cfg, dec)
+    m_k, m_r = np.asarray(out.mask) > 0.5, np.asarray(ref.mask)
+    assert (m_k ^ m_r).mean() < 0.02
+    xerr = np.abs(np.asarray(out.x_p) - np.asarray(ref.x_p))[m_k & m_r]
+    assert np.percentile(xerr, 99) < 0.1
+    # padding the image out to whole tiles changes nothing inside it
+    padded = jnp.pad(bracket, [(0, 0), (0, 0), (0, 4), (0, 106)])
+    full = fused_decode_triangulate_hdr(padded, cam, proj, cfg, dec,
+                                        fuse="select")
+    np.testing.assert_array_equal(np.asarray(full.mask)[:H, :W],
+                                  np.asarray(out.mask))
+    np.testing.assert_allclose(np.asarray(full.points)[:, :H, :W],
+                               np.asarray(out.points), atol=1e-4)
 
 
 def test_decode_bit_depth_uint16_container():
@@ -518,17 +556,12 @@ _LOWER_CASES = {
 }
 
 
-@pytest.mark.parametrize("case,dtype", [
-    ("flagship", "float32"), ("flagship", "uint8"), ("midpoint", "uint8"),
-    ("gray_only", "float32"), ("multifreq", "float32"), ("hdr", "uint8")])
-def test_fused_kernel_lowers_for_triton(monkeypatch, case, dtype):
-    """At the flagship width (1280x1024) every kernel configuration
-    lowers through the Triton route (power-of-two tiles, supported
-    primitives). Lowering only: PTX compilation needs the GPU."""
+def _lower_for_cuda(monkeypatch, case, dtype, H, W):
+    """StableHLO text of one kernel configuration lowered for the GPU
+    (Triton route) at camera size (H, W)."""
     from slr.kernels import fused_scan
 
     monkeypatch.setattr(fused_scan, "use_interpret", lambda: False)
-    H, W = 1024, 1280
     cam, proj = default_rig(cam_w=W, cam_h=H)
     kw = _LOWER_CASES.get(case, _LOWER_CASES["flagship"])
     cfg = PatternConfig(proj_width=1024, proj_height=768, **kw)
@@ -541,8 +574,36 @@ def test_fused_kernel_lowers_for_triton(monkeypatch, case, dtype):
         fn = fused_scan.fused_decode_triangulate
     fn.clear_cache()
     try:
-        text = jax.jit(lambda f: fn(f, cam, proj, cfg, dec)).trace(
+        return jax.jit(lambda f: fn(f, cam, proj, cfg, dec)).trace(
             x).lower(lowering_platforms=("cuda",)).as_text()
     finally:
         fn.clear_cache()
+
+
+@pytest.mark.parametrize("case,dtype", [
+    ("flagship", "float32"), ("flagship", "uint8"), ("midpoint", "uint8"),
+    ("gray_only", "float32"), ("multifreq", "float32"), ("hdr", "uint8")])
+def test_fused_kernel_lowers_for_triton(monkeypatch, case, dtype):
+    """At the flagship width (1280x1024) every kernel configuration
+    lowers through the Triton route (power-of-two tiles, supported
+    primitives). Lowering only: PTX compilation needs the GPU."""
+    text = _lower_for_cuda(monkeypatch, case, dtype, 1024, 1280)
     assert "xla.gpu.triton" in text          # the Triton custom call
+
+
+@pytest.mark.parametrize("case,hw", [
+    ("flagship", (2048, 2448)), ("hdr", (1080, 1440)),
+    ("midpoint", (1021, 1283))])
+def test_fused_kernel_edge_tiles_lower_without_padding(monkeypatch, case,
+                                                       hw):
+    """Camera sizes that are not whole tiles (2448x2048, 1440x1080, odd
+    sizes) lower to the masked-edge Triton kernel: the frame stack goes
+    to the kernel as it is, with no pad (a copy of every frame) or crop
+    around it."""
+    import re
+
+    text = _lower_for_cuda(monkeypatch, case, "uint8", *hw)
+    assert "xla.gpu.triton" in text
+    # the only pad is the 1-D parameter row's; no image-sized pad or slice
+    assert not re.search(r"stablehlo\.(pad|slice)[^\n]*\(tensor<\d+x\d+x",
+                         text)
